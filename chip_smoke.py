@@ -20,8 +20,12 @@ Phases, each printed with its wall time:
 Then one JSON line listing every kernel, the card's line from nvidia-smi,
 and the final line {"ok": true, "device": {...}}.
 
-The launch counts in the kernels line are those of phases 3-4 (the main
-path); the comparisons of phase 2 do not count. Any failed phase exits
+Every mapping run (each golden, and phase 4) sets the launch counters to 0
+just before it drives the pipeline and reads them just after; each run's
+counts must equal the waves its device engine recorded (one score_fill per
+score wave, one launch of each convex kernel per align wave), and phase 4,
+the main path, must launch every kernel. The kernels line carries phase 4's
+counts; the comparisons of phase 2 count nowhere. Any failed phase exits
 non-zero without the final line. Needs one CUDA card, nvcc and the
 repository checkout (it imports ngmlr_tpu_torch from beside this file).
 """
@@ -40,11 +44,44 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(HERE, "tests", "data")
 GOLDEN = os.path.join(HERE, "tests", "golden")
 
-# H100 SXM peaks from NVIDIA's data sheet: HBM3 and
-# the f32 rate outside the tensor cores, used for every integer/f32
-# operation of these kernels
+# H100 SXM peaks from NVIDIA's data sheet: HBM3 at 3.35 TB/s, and 67 TFLOP/s
+# in f32 outside the tensor cores, which counts a fused multiply-add as two
+# operations. The kernels are built with -fmad=false, so each f32 add or
+# multiply is one instruction of the FMA pipe: 33.5e12 a second (132 SMs x
+# 128 lanes x 1.98 GHz). Integer operations, compares, min/max, selects and
+# conversions run on the ALU pipe, which has 64 lanes per SM, half that rate.
+# All instructions share the 128-lane issue, so the operation floor is the
+# larger of (fma + alu) / ISSUE_OPS_S and alu / ALU_OPS_S.
 PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = 67e12
+ISSUE_OPS_S = 67e12 / 2
+ALU_OPS_S = ISSUE_OPS_S / 2
+
+# operations per unit of work, counted from the kernel bodies as
+# (fma-pipe, alu-pipe), the recurrence's own arithmetic (the address
+# arithmetic of the gathers and loop control are left out, as work a
+# better kernel could amortise):
+# score_fill, per cell: compares q == r, r < 4, two selects for s, the add,
+#   the floor at 0 and the running best
+OPS_SCORE_CELL = (0, 7)
+# corridor_windows, per problem and wavefront: two key compares and two
+# pointer adds, the window height and its running max; per row, the two
+# keys (conversion, subtract, divide ~10 FMA-pipe instructions as
+# __fdiv_rn expands, convert back; clamps, max, add: 8 ALU each)
+OPS_WINDOW_STEP = (0, 6)
+OPS_WINDOW_ROW = (20, 16)
+# convex_fill, per live cell: the lane's live test (1); diag = s2 +
+# (mat | mis) (1 add; compare + select); per gap side: run * gdecay + ge
+# (2), + s and + go (2); ext and zero tests, the min with gemin, two
+# selects, the run's conversion (5);
+# unpacking both neighbours' run and direction (4); the max of three with
+# the floor (3); the tie tests (3); the direction and run chain (11); the
+# STOP zeroing (2); the best-cell order (11); packing run and direction (2)
+OPS_FILL_CELL = (9, 49)
+# convex_backtrack, per walk step: the lane and its bounds (3), the STOP
+# test (1), the validPath band (convert, 2 adds + 1 subtract, 2 converts
+# back; 2 compares), the op's pack (2), the two moves (6), the edge test
+# (2) and the step's wavefront test (2)
+OPS_WALK_STEP = (3, 21)
 
 # phase 4: one chromosome (about human chr21/22) and PacBio-like reads
 GENOME_MBP = 50.0
@@ -65,10 +102,17 @@ def check(cond, msg):
         raise PhaseError(msg)
 
 
-def bound_ms(nbytes, nops):
+def bound_ms(nbytes, ops):
+    """(least ms, "bytes" or "operations") for nbytes of traffic and ops =
+    (fma-pipe, alu-pipe) operation counts."""
+    fma, alu = ops
     b = nbytes / PEAK_BYTES_S * 1e3
-    o = nops / PEAK_OPS_S * 1e3
+    o = max((fma + alu) / ISSUE_OPS_S, alu / ALU_OPS_S) * 1e3
     return max(b, o), ("bytes" if b >= o else "operations")
+
+
+def ops_of(per_unit, n):
+    return tuple(k * n for k in per_unit)
 
 
 def cuda_ms(fn, reps=1, warmup=1):
@@ -245,7 +289,8 @@ def phase_kernels(rng, dev="cuda"):
     err = max_abs_err([(got, want)])
     ms = cuda_ms(lambda: K.score_fill(genome, readbuf, spk, Rp, Qp), reps=20)
     cells = P * 306 * 256
-    b, by_ = bound_ms(P * (7 * 4 + 4 + 306 + 256), 6 * cells)
+    b, by_ = bound_ms(P * (7 * 4 + 4 + 306 + 256),
+                      ops_of(OPS_SCORE_CELL, cells))
     rec["score_fill"] = dict(
         name="score_fill", route="cuda", source="ngmlr_tpu_torch/csrc/score_fill.cu",
         replaces="ngmlr_tpu/ops/pallas_kernels.py:691", max_abs_err=err,
@@ -261,7 +306,11 @@ def phase_kernels(rng, dev="cuda"):
     err = max_abs_err(zip(got, want))
     ms = cuda_ms(lambda: K.corridor_windows(cpk, TpP), reps=20)
     lib_ms = _searchsorted_ms(K, cpk, TpP, want[0], want[1])
-    b, by_ = bound_ms(B * 12 * 4 + 2 * B * TpP * 4 + B * 4, 20 * B * TpP)
+    n_rows = int(cpk[:, 5].clamp(min=0).sum())
+    step_ops, row_ops = (ops_of(OPS_WINDOW_STEP, B * TpP),
+                         ops_of(OPS_WINDOW_ROW, n_rows))
+    b, by_ = bound_ms(B * 12 * 4 + 2 * B * TpP * 4 + B * 4,
+                      (step_ops[0] + row_ops[0], step_ops[1] + row_ops[1]))
     rec["corridor_windows"] = dict(
         name="corridor_windows", route="cuda",
         source="ngmlr_tpu_torch/csrc/corridor_windows.cu",
@@ -338,11 +387,11 @@ def phase_kernels(rng, dev="cuda"):
             Hsum = int(apk[:, 5].sum())
             fb, fby = bound_ms(
                 B * (12 * 4 + 12) + 24 + int(n_t.sum()) * (8 + L)
-                + Wsum + Hsum, 30 * live)
+                + Wsum + Hsum, ops_of(OPS_FILL_CELL, live))
             ops4 = bt[0]
             steps = sum(int(((ops4 >> s) & 3).ne(0).sum()) for s in (0, 2, 4, 6))
             bb, bby = bound_ms(B * (12 * 4 + 8 + 12) + B * TpP // 4
-                               + steps * 5, 20 * steps)
+                               + steps * 5, ops_of(OPS_WALK_STEP, steps))
             log("convex main-path: fill kernel_ms=%.3f plain_ms=%.1f "
                 "bound_ms=%.4f (%s); backtrack kernel_ms=%.3f plain_ms=%.1f "
                 "bound_ms=%.5f (%s); live cells %d, walk steps %d"
@@ -402,7 +451,11 @@ def _records(sam):
 
 
 def _map(argv, device="cuda", use_cache=True):
+    """Map through the port's Pipeline. Returns (pipeline, SAM bytes, setup
+    s, map s, the kernel launches of this run alone)."""
+    import torch
     from ngmlr_tpu_torch.cli import build_parser, config_from_args
+    from ngmlr_tpu_torch.ops import kernels as K
     from ngmlr_tpu_torch.pipeline.runner import Pipeline
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args, argv)
@@ -410,10 +463,21 @@ def _map(argv, device="cuda", use_cache=True):
     p = Pipeline(cfg, args.reference, use_cache=use_cache, device=device)
     t1 = time.perf_counter()
     buf = io.BytesIO()
+    K.reset_launches()
     p.run(args.query, buf)
-    import torch
     torch.cuda.synchronize()
-    return p, buf.getvalue(), t1 - t0, time.perf_counter() - t1
+    launches = dict(K.launches)
+    return p, buf.getvalue(), t1 - t0, time.perf_counter() - t1, launches
+
+
+def check_launches(tag, launches, stats):
+    """A run's launches must be the waves its engine recorded: one
+    score_fill per score wave, one of each convex kernel per align wave."""
+    want = {"score_fill": stats["score_waves"]}
+    for k in ("corridor_windows", "convex_fill", "convex_backtrack"):
+        want[k] = stats["align_waves"]
+    check(launches == want, "%s: launches %s, but the engine recorded %s"
+          % (tag, launches, want))
 
 
 def _per_read(sam, mask_qual):
@@ -463,9 +527,10 @@ def _golden_runs():
 
 
 def phase_goldens():
-    times = {}
+    """Returns {tag: {"map_s", "launches"}} of the nine golden runs."""
+    runs = {}
     for tag, argv, golden, mode in _golden_runs():
-        p, out, t_setup, t_run = _map(argv)
+        p, out, t_setup, t_run, launches = _map(argv)
         with open(os.path.join(GOLDEN, golden), "rb") as f:
             want = f.read()
         if mode == "bytes":
@@ -479,12 +544,18 @@ def phase_goldens():
             verdict = "%d/%d reads identical%s" % (
                 len(g) - len(bad), len(g),
                 "" if same else ", first diffs %s" % bad[:3])
-        times[tag] = t_run
+        runs[tag] = {"map_s": t_run, "launches": launches}
         log("golden %s: %s (%d reads, setup %.2f s, map %.2f s, engine "
-            "waves %d)" % (tag, verdict, p.stats["reads"], t_setup, t_run,
-                           p.ctx.stats.get("engine_waves", 0)))
+            "waves %d, launches %s)"
+            % (tag, verdict, p.stats["reads"], t_setup, t_run,
+               p.ctx.stats.get("engine_waves", 0), json.dumps(launches)))
         check(same, "%s differs from tests/golden/%s" % (tag, golden))
-    return times
+        check_launches("golden " + tag, launches, p.ctx.stats)
+    for k in ("score_fill", "corridor_windows", "convex_fill",
+              "convex_backtrack"):
+        check(sum(r["launches"][k] for r in runs.values()) > 0,
+              "no golden run launched %s" % k)
+    return runs
 
 
 def make_genome(rng, n):
@@ -589,9 +660,9 @@ def phase_mapping(genome_mbp, n_reads, read_len, workdir, profile_dir=None):
     def run():
         return _map(["-r", ref_p, "-q", reads_p], use_cache=False)
     if profile_dir:
-        (p, out, t_setup, t_run), prof = _profiled(run, profile_dir)
+        (p, out, t_setup, t_run, launches), prof = _profiled(run, profile_dir)
     else:
-        p, out, t_setup, t_run = run()
+        p, out, t_setup, t_run, launches = run()
         prof = None
     st, ds = p.stats, p.ctx.stats
     mapped = st["mapped"] / max(1, st["reads"])
@@ -622,7 +693,8 @@ def phase_mapping(genome_mbp, n_reads, read_len, workdir, profile_dir=None):
         align_gcups_useful=ds["cells_align_useful"] / t_run / 1e9,
         lane_bound_retries=ds.get("lane_bound_retries", 0),
         native_failed=ds.get("native_failed", 0),
-        max_memory_allocated=torch.cuda.max_memory_allocated())
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches=launches)
     if prof is not None:
         # device busy share of the map: summed device time of every
         # kernel and copy (the genome upload of the setup included) over
@@ -631,6 +703,9 @@ def phase_mapping(genome_mbp, n_reads, read_len, workdir, profile_dir=None):
         summary["device_busy_share"] = prof["device_ms_total"] / (t_run * 1e3)
     log("mapping: " + json.dumps(summary))
     check(summary["engine_waves"] > 0, "the native engine ran no wave")
+    check_launches("mapping", launches, ds)
+    for name, n in launches.items():
+        check(n > 0, "kernel %s was not launched on the main path" % name)
     check(summary["native_failed"] == 0, "native engine reads failed")
     check(mapped >= 0.95, "only %.3f of the reads mapped" % mapped)
     check(summary["primary_near_origin"] >= 0.9,
@@ -657,7 +732,6 @@ def main():
         return 2
     sys.path.insert(0, HERE)
     torch.backends.cuda.matmul.allow_tf32 = False
-    from ngmlr_tpu_torch.ops import kernels as K
 
     record = {}
     t_all = time.perf_counter()
@@ -672,9 +746,8 @@ def main():
         for r in kern.values():
             check(r["max_abs_err"] == 0.0,
                   "%s differs from its plain version" % r["name"])
-        K.reset_launches()
         t0 = time.perf_counter()
-        record["goldens_map_s"] = phase_goldens()
+        record["goldens"] = phase_goldens()
         log("phase 3 (goldens): %.2f s" % (time.perf_counter() - t0))
         t0 = time.perf_counter()
         record["mapping"] = phase_mapping(
@@ -682,10 +755,7 @@ def main():
             os.path.join(HERE, "ngmlr_tpu_torch", "_build", "smoke"),
             args.profile)
         log("phase 4 (mapping): %.2f s" % (time.perf_counter() - t0))
-        launches = dict(K.launches)
-        log("launches in phases 3-4: %s" % json.dumps(launches))
-        for name, n in launches.items():
-            check(n > 0, "kernel %s was not launched on the main path" % name)
+        launches = record["mapping"]["launches"]
     except PhaseError as e:
         log("FAIL: %s" % e)
         _dump(args.out, record)

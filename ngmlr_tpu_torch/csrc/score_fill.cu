@@ -21,8 +21,9 @@
 // column, a thread needs the previous column's value of the row just above
 // its first row: a warp shuffle inside the warp, and a double-buffered
 // shared slot across warp edges, with one __syncthreads() per column. The
-// reference window is gathered once into shared memory; the query codes
-// live in registers for the whole fill.
+// reference window is gathered once into shared memory (up to 128 KB for
+// the widest bucket, past the default 48 KB by the opt-in attribute); the
+// query codes live in registers for the whole fill.
 #include "common.cuh"
 
 namespace {
@@ -32,12 +33,8 @@ __global__ void score_fill_kernel(const uint8_t* __restrict__ genome,
                                   int64_t glen,
                                   const uint8_t* __restrict__ readbuf,
                                   int64_t rlen, const int32_t* __restrict__ pk,
-                                  int Rp, bool staged,
-                                  float* __restrict__ out) {
-  // [Rp] reference codes; buckets too wide for shared memory (only the
-  // probes past the MAX_SEQ_LEN guard, whose scores the host discards)
-  // gather each column from the genome instead
-  extern __shared__ uint8_t sref[];
+                                  int Rp, float* __restrict__ out) {
+  extern __shared__ uint8_t sref[];           // [Rp] reference codes
   __shared__ int32_t edge[2][32];             // last row value of each warp
   __shared__ int32_t wbest[32];
 
@@ -47,7 +44,7 @@ __global__ void score_fill_kernel(const uint8_t* __restrict__ genome,
   const int diff = row[2], W = row[3] & ngt::W_MASK;
   const int qs = row[4], qlen = row[5], rev = row[6];
 
-  for (int i = threadIdx.x; staged && i < Rp; i += blockDim.x)
+  for (int i = threadIdx.x; i < Rp; i += blockDim.x)
     sref[i] = (uint8_t)ngt::ref_code(genome, glen, ds, diff, hi, W, i);
   if (threadIdx.x < 32) edge[0][threadIdx.x] = 0;
 
@@ -63,8 +60,7 @@ __global__ void score_fill_kernel(const uint8_t* __restrict__ genome,
   __syncthreads();
 
   for (int i = 0; i < Rp; ++i) {
-    const int rc =
-        staged ? sref[i] : ngt::ref_code(genome, glen, ds, diff, hi, W, i);
+    const int rc = sref[i];
     int up = __shfl_up_sync(0xffffffffu, h[R - 1], 1);
     if (lane == 0) up = warp > 0 ? edge[i & 1][warp - 1] : 0;
 #pragma unroll
@@ -99,9 +95,14 @@ cudaError_t launch(const uint8_t* genome, int64_t glen, const uint8_t* readbuf,
                    int64_t rlen, const int32_t* pk, int P, int Rp, int Qp,
                    float* out, cudaStream_t stream) {
   const int threads = Qp / R;
-  const bool staged = Rp <= 48 * 1024;
-  score_fill_kernel<R><<<P, threads, staged ? Rp : 0, stream>>>(
-      genome, glen, readbuf, rlen, pk, Rp, staged, out);
+  if (Rp > 48 * 1024) {
+    // the widest bucket the host launches is 131072 columns (W < MAX_SEQ_LEN)
+    cudaError_t e = cudaFuncSetAttribute(
+        score_fill_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, Rp);
+    if (e != cudaSuccess) return e;
+  }
+  score_fill_kernel<R><<<P, threads, Rp, stream>>>(genome, glen, readbuf, rlen,
+                                                  pk, Rp, out);
   return cudaGetLastError();
 }
 

@@ -66,7 +66,8 @@ def _align_rows(rng, B, G, R, Wr, Hr, widths):
 def test_score_fill_kernel_matches_plain(dev):
     rng, g, r = _bufs(dev, 1)
     # the hot bucket, a small one, one with several query rows per thread,
-    # and one too wide to stage its reference window in shared memory
+    # and one whose reference window passes the default 48 KB of shared
+    # memory (the kernel raises its opt-in limit)
     for W, qlen, Rp, Qp, P in ((306, 256, 320, 256, 96), (40, 50, 64, 64, 96),
                                (700, 1500, 1024, 2048, 96),
                                (60000, 300, 65536, 512, 4)):
