@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--out DIR] [--profile DIR]
 
 Phases, each printed with its wall time:
-  1. card and build: the card's name and power limit, nvcc build of the four
+  1. card and build: the card's name and power limit, nvcc build of the five
      kernels from csrc/ (one nvcc per source, started together);
   2. each kernel against its plain PyTorch version on the card, bit for bit,
      at the shapes of the main path and the wide lane classes, with the
@@ -12,21 +12,36 @@ Phases, each printed with its wall time:
      times, and the bound worked out from this run's inputs;
   3. the goldens: the nine checks of scripts/check_goldens.sh (test_2
      pacbio and ont, test_4 and the other six) mapped through the port's
-     Pipeline on the card, identical to tests/golden (@PG excluded);
-  4. a mapping run at a real size: a seeded synthetic genome (50 Mbp, about
-     one human chromosome) and 256 PacBio-like 9 kb reads at ~15% error,
-     through the native assembly engine (traced by torch.profiler with
-     --profile, which gives the device time by kernel and the busy share).
-Then one JSON line listing every kernel, the card's line from nvidia-smi,
-and the final line {"ok": true, "device": {...}}.
+     Pipeline on the card with the default gate (the device candidate
+     search), identical to tests/golden (@PG excluded), and test_2 pacbio
+     and test_4 again with the host search (NGMLR_TPU_DEVICE_SEARCH=0);
+  4. the main path at one chromosome: a seeded synthetic genome (50 Mbp,
+     about human chr21/22) and 256 PacBio-like 9 kb reads at ~15% error,
+     with the default gate (the device search) through the native assembly
+     engine; then the same Pipeline maps the reads again with the host
+     search, and the two SAMs must be equal byte for byte;
+  5. chromosome-1 scale: a seeded synthetic 250 Mbp genome (about human
+     chr1) carrying a young-LINE-1-like repeat family, 256 such reads from
+     outside its copies, and 2 reads from inside copies (one at ONT-like
+     2% error, one PacBio-like), whose subreads there run the search's v1
+     path and v2's reruns on the card; each read file maps with
+     the device search and again with the host search on the same
+     Pipeline, byte-identical, and each file's first batch of candidates
+     equals the host search_batch subread by subread.
+With --profile DIR, torch.profiler traces the first mapping of phases 4
+and 5 (device time by kernel and the busy share). Then one JSON line
+listing every kernel, the card's line from nvidia-smi, and the final line
+{"ok": true, "device": {...}}.
 
-Every mapping run (each golden, and phase 4) sets the launch counters to 0
-just before it drives the pipeline and reads them just after; each run's
-counts must equal the waves its device engine recorded (one score_fill per
-score wave, one launch of each convex kernel per align wave), and phase 4,
-the main path, must launch every kernel. The kernels line carries phase 4's
-counts; the comparisons of phase 2 count nowhere. Any failed phase exits
-non-zero without the final line. Needs one CUDA card, nvcc and the
+Every mapping run (each golden, each mapping of phases 4 and 5) sets the
+launch counters to 0 just before it drives the pipeline and reads them
+just after; each run's counts must equal the waves its own run recorded
+(one score_fill per score wave, one launch of each convex kernel per align
+wave, one expand_votes per row-local device-search launch, none with the
+host search), and the first mappings of phases 4 and 5 must launch all
+five. The kernels line carries the counts of phase 4's first mapping, the
+main path; the comparisons of phase 2 count nowhere. Any failed phase
+exits non-zero without the final line. Needs one CUDA card, nvcc and the
 repository checkout (it imports ngmlr_tpu_torch from beside this file).
 """
 
@@ -82,11 +97,33 @@ OPS_FILL_CELL = (9, 49)
 # back; 2 compares), the op's pack (2), the two moves (6), the edge test
 # (2) and the step's wavefront test (2)
 OPS_WALK_STEP = (3, 21)
+# expand_votes, per vote and binary-search step: the compare and the select
+# of the next bound (ceil(log2(SL2 + 1)) = 10 steps for 544 slots)
+OPS_EXPAND_STEP = (0, 2)
 
 # phase 4: one chromosome (about human chr21/22) and PacBio-like reads
 GENOME_MBP = 50.0
 N_READS = 256
 READ_LEN = 9000
+# phase 5: about human chr1
+LARGE_GENOME_MBP = 250.0
+# phase 5's genome carries one repeat family, about a young LINE-1
+# subfamily (full-length L1 is ~6 kb; young subfamilies hold hundreds of
+# near-identical copies): REPEAT_COPIES copies of one REPEAT_LEN element,
+# REPEAT_DIV of each copy's bases redrawn, half of them reverse-complemented
+# (2.4% of the genome). REPEAT_READS more reads start inside copies, every
+# other one at REPEAT_READ_ERR error, as ONT R10 reads do (their subreads in
+# a copy pass L_V2_MAX votes: v1 outliers), the rest PacBio-like at 15%
+# (their subreads in a copy pass E_CAP entries: v2 rows rerun through v1).
+# Each such read took ~30 s of chaining on the host of an H100 80GB HBM3
+# machine, so there are two.
+REPEAT_LEN = 6000
+REPEAT_COPIES = 1000
+REPEAT_DIV = 0.005
+REPEAT_READS = 2
+REPEAT_READ_ERR = 0.02
+KERNELS = ("score_fill", "corridor_windows", "convex_fill",
+           "convex_backtrack", "expand_votes")
 
 
 class PhaseError(RuntimeError):
@@ -116,13 +153,17 @@ def ops_of(per_unit, n):
 
 
 def cuda_ms(fn, reps=1, warmup=1):
-    """Mean device time of fn() over reps launches, by CUDA events."""
+    """Mean device time of fn() over reps launches, by CUDA events. The
+    launches queue behind a sleep kernel (~10 ms), so for a kernel shorter
+    than its wrapper's host overhead the gaps between launches do not
+    count."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     a.record()
     for _ in range(reps):
         fn()
@@ -413,7 +454,87 @@ def phase_kernels(rng, dev="cuda"):
         torch.cuda.empty_cache()
     rec["convex_fill"]["max_abs_err"] = fill_err
     rec["convex_backtrack"]["max_abs_err"] = bt_err
+    rec["expand_votes"] = phase_expand_votes(rng, dev)
     return rec
+
+
+def slot_tables(rng, B, L, n_positions, ragged=False):
+    """Device-search v2 slot tables of B rows with up to L votes each, as
+    _search_kernel_v2 builds them: cum2 [B, SL2], d2tp / ct2p [B, SL2 + 1]
+    int32. Votes fall on random slots, between 60% and all of L a row; the
+    ragged case also has zero-vote rows, a row with exactly L votes, and
+    rows whose votes all sit in one slot."""
+    from ngmlr_tpu_torch.seed.device_search import SL
+    SL2 = 2 * SL
+    nv = rng.integers(L * 3 // 5, L + 1, B)
+    if ragged:
+        nv[:4] = (0, L, L - 3, L)
+    slots = rng.integers(0, SL2, (B, L))
+    if ragged:
+        slots[2] = 37                   # one slot holds all of a row's votes
+        slots[3] = SL2 - 1              # ... the last slot, row full
+        nv[8:11] = 0
+    keep = np.arange(L)[None, :] < nv[:, None]
+    flat = (np.arange(B)[:, None] * SL2 + slots)[keep]
+    c2 = np.bincount(flat, minlength=B * SL2).reshape(B, SL2).astype(np.int32)
+    base2 = rng.integers(0, n_positions, (B, SL2)).astype(np.int32)
+    ct2 = rng.integers(-300, 300, (B, SL2)).astype(np.int32)
+    cum2 = np.cumsum(c2, axis=1, dtype=np.int32)
+    zero = np.zeros((B, 1), np.int32)
+    d2tp = np.concatenate([base2 - (cum2 - c2), zero], axis=1)
+    ct2p = np.concatenate([ct2, zero], axis=1)
+    return cum2, d2tp, ct2p
+
+
+def phase_expand_votes(rng, dev):
+    """expand_votes against its plain version (integers: exact) at the
+    launch classes that 9 kb reads land in on a 250 Mbp genome, (B, L) =
+    (4096, 768), and on a 50 Mbp one, (8192, 512), the largest vote class
+    (128, 32768) and a small ragged case; timed at the first, beside one
+    torch.searchsorted + two gathers (the library yardstick, checked for
+    equality, used nowhere in the port)."""
+    import torch
+    from ngmlr_tpu_torch.ops import kernels as K
+    err, out = 0.0, None
+    for tag, B, L, ragged in (("main", 4096, 768, False),
+                              ("50 Mbp", 8192, 512, False),
+                              ("L_V2_MAX", 128, 32768, False),
+                              ("ragged", 16, 512, True)):
+        t = [torch.from_numpy(x).to(dev)
+             for x in slot_tables(rng, B, L, 83_000_000, ragged)]
+        got = K.expand_votes(*t, L)
+        want, plain_ms = timed_once(lambda: K.expand_votes_plain(*t, L))
+        e = max_abs_err(zip(got, want))
+        err = max(err, e)
+        log("expand_votes %s B=%d L=%d: max_abs_err=%g" % (tag, B, L, e))
+        if tag != "main":
+            continue
+        cum2, d2tp, ct2p = t
+        ms = cuda_ms(lambda: K.expand_votes(cum2, d2tp, ct2p, L), reps=20)
+        cols = torch.arange(L, dtype=torch.int32, device=dev)[None, :] \
+            .expand(B, -1).contiguous()
+
+        def lib():
+            s = torch.searchsorted(cum2, cols, right=True)
+            return s, torch.gather(d2tp, 1, s), torch.gather(ct2p, 1, s)
+        check(all(torch.equal(a.to(torch.int32), b)
+                  for a, b in zip(lib(), want)),
+              "searchsorted yardstick disagrees with expand_votes")
+        lib_ms = cuda_ms(lib, reps=20)
+        SL2 = cum2.shape[1]
+        steps = int(np.ceil(np.log2(SL2 + 1)))
+        b, by_ = bound_ms(B * L * 12 + B * (3 * SL2 + 2) * 4,
+                          ops_of(OPS_EXPAND_STEP, B * L * steps))
+        log("expand_votes main B=%d L=%d: kernel_ms=%.4f plain_ms=%.2f "
+            "library_ms=%.4f bound_ms=%.4f (%s)"
+            % (B, L, ms, plain_ms, lib_ms, b, by_))
+        out = dict(
+            name="expand_votes", route="cuda",
+            source="ngmlr_tpu_torch/csrc/expand_votes.cu",
+            replaces="ngmlr_tpu/ops/pallas_kernels.py:635", ms=ms,
+            plain_ms=plain_ms, bound_ms=b, bound_by=by_, library_ms=lib_ms)
+    out["max_abs_err"] = err
+    return out
 
 
 def _searchsorted_ms(K, cpk, TpP, ymin, ymax):
@@ -453,29 +574,26 @@ def _records(sam):
 def _map(argv, device="cuda", use_cache=True):
     """Map through the port's Pipeline. Returns (pipeline, SAM bytes, setup
     s, map s, the kernel launches of this run alone)."""
-    import torch
     from ngmlr_tpu_torch.cli import build_parser, config_from_args
-    from ngmlr_tpu_torch.ops import kernels as K
     from ngmlr_tpu_torch.pipeline.runner import Pipeline
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args, argv)
     t0 = time.perf_counter()
     p = Pipeline(cfg, args.reference, use_cache=use_cache, device=device)
-    t1 = time.perf_counter()
-    buf = io.BytesIO()
-    K.reset_launches()
-    p.run(args.query, buf)
-    torch.cuda.synchronize()
-    launches = dict(K.launches)
-    return p, buf.getvalue(), t1 - t0, time.perf_counter() - t1, launches
+    t_setup = time.perf_counter() - t0
+    out, t_run, launches = _run_on(p, args.query)
+    return p, out, t_setup, t_run, launches
 
 
 def check_launches(tag, launches, stats):
     """A run's launches must be the waves its engine recorded: one
-    score_fill per score wave, one of each convex kernel per align wave."""
+    score_fill per score wave, one of each convex kernel per align wave,
+    one expand_votes per row-local device-search launch (none in a run
+    with the host search)."""
     want = {"score_fill": stats["score_waves"]}
     for k in ("corridor_windows", "convex_fill", "convex_backtrack"):
         want[k] = stats["align_waves"]
+    want["expand_votes"] = stats["search_v2_launches"]
     check(launches == want, "%s: launches %s, but the engine recorded %s"
           % (tag, launches, want))
 
@@ -526,11 +644,35 @@ def _golden_runs():
          "test_8_ultralong.sam", "reads")]
 
 
+def _env(name, value):
+    """Set (value str) or unset (None) an environment variable; returns
+    the old value."""
+    old = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    return old
+
+
 def phase_goldens():
-    """Returns {tag: {"map_s", "launches"}} of the nine golden runs."""
+    """Returns {tag: {"map_s", "launches"}} of the nine golden runs with the
+    default gate (the device candidate search, which must launch
+    expand_votes) and two host-search runs (test_2 pacbio and test_4 with
+    NGMLR_TPU_DEVICE_SEARCH=0)."""
     runs = {}
-    for tag, argv, golden, mode in _golden_runs():
-        p, out, t_setup, t_run, launches = _map(argv)
+    host_runs = [("host search " + tag, argv, golden, mode)
+                 for tag, argv, golden, mode in _golden_runs()
+                 if tag in ("test_2 pacbio", "test_4")]
+    for tag, argv, golden, mode in _golden_runs() + host_runs:
+        ds = not tag.startswith("host search")
+        old = _env("NGMLR_TPU_DEVICE_SEARCH", None if ds else "0")
+        try:
+            p, out, t_setup, t_run, launches = _map(argv)
+        finally:
+            _env("NGMLR_TPU_DEVICE_SEARCH", old)
+        check((p.dev_search is not None) == ds,
+              "%s: device search %s" % (tag, "off" if ds else "on"))
         with open(os.path.join(GOLDEN, golden), "rb") as f:
             want = f.read()
         if mode == "bytes":
@@ -551,8 +693,13 @@ def phase_goldens():
                p.ctx.stats.get("engine_waves", 0), json.dumps(launches)))
         check(same, "%s differs from tests/golden/%s" % (tag, golden))
         check_launches("golden " + tag, launches, p.ctx.stats)
-    for k in ("score_fill", "corridor_windows", "convex_fill",
-              "convex_backtrack"):
+        check(not ds or launches["expand_votes"] > 0,
+              "%s launched no expand_votes" % tag)
+        fb = {k: v for k, v in p.ctx.stats.items()
+              if k.startswith("search_fallback_")}
+        check(not fb, "%s: device search fell back: %s" % (tag, fb))
+        del p
+    for k in KERNELS:
         check(sum(r["launches"][k] for r in runs.values()) > 0,
               "no golden run launched %s" % k)
     return runs
@@ -570,13 +717,14 @@ def mutate_codes(rng, codes):
     return lut[np.frombuffer(mutate_pacbio(rng, back), dtype=np.uint8)].tobytes()
 
 
-def mutate_pacbio(rng, seq):
-    """~15% error: 10% insertions, 4% deletions, 1% substitutions (per input
+def mutate_pacbio(rng, seq, err=0.15):
+    """err = 0.15: 10% insertions, 4% deletions, 1% substitutions (per input
     base: a deletion emits nothing, an insertion emits one random base
-    before the original, a substitution replaces it)."""
+    before the original, a substitution replaces it); another err scales
+    the three alike."""
     n = len(seq)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
-    r = rng.random(n)
+    r = rng.random(n) * (0.15 / err)
     ins = r < 0.10
     dele = (r >= 0.10) & (r < 0.14)
     sub = (r >= 0.14) & (r < 0.15)
@@ -603,7 +751,7 @@ def write_fasta(path, records):
 def _profiled(fn, out_dir):
     """Run fn() under torch.profiler (CPU + CUDA activities). Returns
     (fn's result, {device_ms_total, per-name device ms and counts}); writes
-    the key_averages table and a Chrome trace into out_dir."""
+    the key_averages table into out_dir."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -624,62 +772,108 @@ def _profiled(fn, out_dir):
                    if dev_us(e) > 0), key=lambda x: -x[1])
     with open(os.path.join(out_dir, "mapping_profile.txt"), "w") as f:
         f.write(ka.table(sort_by="self_device_time_total", row_limit=40))
-    prof.export_chrome_trace(os.path.join(out_dir, "mapping_trace.json"))
     top = [{"name": n[:80], "device_ms": ms, "count": c}
            for n, ms, c in rows[:12]]
     log("profile: device time by name: " + json.dumps(top))
     return r, {"device_ms_total": sum(ms for _, ms, _ in rows), "top": top}
 
 
-def phase_mapping(genome_mbp, n_reads, read_len, workdir, profile_dir=None):
-    import torch
-    rng = np.random.default_rng(1234)
+def plant_repeats(rng, genome):
+    """Overwrite REPEAT_COPIES places of genome (ASCII ACGT), on a grid so no
+    two overlap, with copies of one random REPEAT_LEN element (see the
+    constants). Returns the copies' starts."""
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    comp = np.zeros(256, np.uint8)
+    comp[bases] = np.frombuffer(b"TGCA", dtype=np.uint8)
+    elem = rng.choice(bases, size=REPEAT_LEN)
+    slots = rng.choice(len(genome) // REPEAT_LEN - 1, size=REPEAT_COPIES,
+                       replace=False)
+    starts = np.sort(slots) * REPEAT_LEN
+    for s in starts:
+        c = elem.copy()
+        hit = rng.random(REPEAT_LEN) < REPEAT_DIV
+        c[hit] = rng.choice(bases, size=int(hit.sum()))
+        genome[s:s + REPEAT_LEN] = comp[c[::-1]] if rng.random() < 0.5 else c
+    return starts
+
+
+def make_dataset(rng, genome_mbp, n_reads, read_len, workdir, repeats=False):
+    """A seeded synthetic genome and n_reads PacBio-like reads (half
+    reverse-complemented) from random places, written as FASTA into
+    workdir; with repeats, the genome carries the repeat family, the
+    n_reads avoid its copies, and REPEAT_READS more reads, each starting
+    inside a copy, go to a file of their own. Returns (ref path, reads
+    path, repeat reads path or None, {read name: source position})."""
     glen = int(genome_mbp * 1e6)
     t0 = time.perf_counter()
     genome = make_genome(rng, glen)
+    copies = plant_repeats(rng, genome) if repeats else None
     os.makedirs(workdir, exist_ok=True)
     ref_p = os.path.join(workdir, "ref.fa")
     reads_p = os.path.join(workdir, "reads.fa")
     write_fasta(ref_p, [(b"synth_chr1", genome.tobytes())])
     comp = bytes.maketrans(b"ACGT", b"TGCA")
-    reads, origin = [], {}
-    for i in range(n_reads):
-        pos = int(rng.integers(0, glen - read_len))
-        read = mutate_pacbio(rng, genome[pos:pos + read_len])
+    origin = {}
+
+    def read_at(name, pos, err):
+        read = mutate_pacbio(rng, genome[pos:pos + read_len], err)
         if rng.random() < 0.5:
             read = read.translate(comp)[::-1]
-        name = b"read_%d_%d" % (i, pos)
         origin[name] = pos
-        reads.append((name, read))
+        return name, read
+    def in_repeat(pos):
+        i = np.searchsorted(copies, pos + read_len)
+        return i > 0 and copies[i - 1] + REPEAT_LEN > pos
+    reads = []
+    for i in range(n_reads):
+        pos = int(rng.integers(0, glen - read_len))
+        while copies is not None and in_repeat(pos):
+            pos = int(rng.integers(0, glen - read_len))
+        reads.append(read_at(b"read_%d_%d" % (i, pos), pos, 0.15))
     write_fasta(reads_p, reads)
-    del genome
-    log("generated %.0f Mbp genome + %d x %d bp reads in %.2f s"
-        % (genome_mbp, n_reads, read_len, time.perf_counter() - t0))
-    torch.cuda.reset_peak_memory_stats()
+    rep_p = None
+    if repeats:
+        rep_p = os.path.join(workdir, "repeat_reads.fa")
+        starts = rng.choice(copies, size=REPEAT_READS, replace=False) \
+            + rng.integers(0, REPEAT_LEN // 2, size=REPEAT_READS)
+        write_fasta(rep_p, [read_at(b"repeat_read_%d_%d" % (i, pos), int(pos),
+                                    0.15 if i & 1 else REPEAT_READ_ERR)
+                            for i, pos in enumerate(starts)])
+    log("generated %.0f Mbp genome%s + %d x %d bp reads in %.2f s"
+        % (genome_mbp, " with %d repeat copies and %d reads in them"
+           % (REPEAT_COPIES, REPEAT_READS) if repeats else "", n_reads,
+           read_len, time.perf_counter() - t0))
+    return ref_p, reads_p, rep_p, origin
 
-    def run():
-        return _map(["-r", ref_p, "-q", reads_p], use_cache=False)
-    if profile_dir:
-        (p, out, t_setup, t_run, launches), prof = _profiled(run, profile_dir)
-    else:
-        p, out, t_setup, t_run, launches = run()
-        prof = None
-    st, ds = p.stats, p.ctx.stats
-    mapped = st["mapped"] / max(1, st["reads"])
+
+def near_origin(out, origin):
+    """Share of the SAM's primary records within 2 kb of their read's
+    source."""
     near = n_prim = 0
     for line in out.split(b"\n"):
         if not line or line.startswith(b"@"):
             continue
         f = line.split(b"\t")
-        flag = int(f[1])
-        if flag & 0x904:
+        if int(f[1]) & 0x904:
             continue
         n_prim += 1
         near += abs(int(f[3]) - 1 - origin[f[0]]) <= 2000
+    return near / max(1, n_prim)
+
+
+def mapping_summary(tag, genome_mbp, p, out, origin, t_setup, t_run,
+                    launches, prof):
+    """The numbers of one mapping run, and its checks: the native engine
+    ran, the launches equal the engine's waves, no batch left the device
+    search, no read failed, >= 0.95 of the reads mapped and >= 0.90 of the
+    primary records lie within 2 kb of their source."""
+    import torch
+    st, ds = p.stats, p.ctx.stats
+    mapped = st["mapped"] / max(1, st["reads"])
     summary = dict(
         genome_mbp=genome_mbp, reads=st["reads"], mapped=st["mapped"],
         setup_s=t_setup, map_s=t_run, reads_per_s=st["reads"] / t_run,
-        primary_near_origin=near / max(1, n_prim),
+        primary_near_origin=near_origin(out, origin),
         engine_waves=ds.get("engine_waves", 0),
         score_waves=ds["score_waves"], align_waves=ds["align_waves"],
         score_s=ds["score_s"], align_s=ds["align_s"],
@@ -695,22 +889,235 @@ def phase_mapping(genome_mbp, n_reads, read_len, workdir, profile_dir=None):
         native_failed=ds.get("native_failed", 0),
         max_memory_allocated=torch.cuda.max_memory_allocated(),
         launches=launches)
+    summary["search_v2_retry"] = 0
+    summary.update({k: v for k, v in ds.items() if k.startswith("search_")})
     if prof is not None:
         # device busy share of the map: summed device time of every
-        # kernel and copy (the genome upload of the setup included) over
-        # the map's wall time
+        # kernel and copy over the map's wall time
         summary["profile"] = prof
         summary["device_busy_share"] = prof["device_ms_total"] / (t_run * 1e3)
-    log("mapping: " + json.dumps(summary))
-    check(summary["engine_waves"] > 0, "the native engine ran no wave")
-    check_launches("mapping", launches, ds)
-    for name, n in launches.items():
-        check(n > 0, "kernel %s was not launched on the main path" % name)
-    check(summary["native_failed"] == 0, "native engine reads failed")
-    check(mapped >= 0.95, "only %.3f of the reads mapped" % mapped)
+    log("%s: %s" % (tag, json.dumps(summary)))
+    check(summary["engine_waves"] > 0, "%s: the native engine ran no wave"
+          % tag)
+    check_launches(tag, launches, ds)
+    fb = [k for k in ds if k.startswith("search_fallback_")]
+    check(not fb, "%s: the device search handed batches back: %s"
+          % (tag, fb))
+    check(summary["native_failed"] == 0, "%s: native engine reads failed"
+          % tag)
+    check(mapped >= 0.95, "%s: only %.3f of the reads mapped" % (tag, mapped))
     check(summary["primary_near_origin"] >= 0.9,
-          "only %.3f of the primary records lie near their source"
-          % summary["primary_near_origin"])
+          "%s: only %.3f of the primary records lie near their source"
+          % (tag, summary["primary_near_origin"]))
+    return summary
+
+
+def _pipeline(ref_p, reads_p):
+    """A Pipeline on the card with the default search gate (the variable
+    unset), timed. Returns (pipeline, setup s)."""
+    from ngmlr_tpu_torch.cli import build_parser, config_from_args
+    from ngmlr_tpu_torch.pipeline.runner import Pipeline
+    argv = ["-r", ref_p, "-q", reads_p]
+    args = build_parser().parse_args(argv)
+    old = _env("NGMLR_TPU_DEVICE_SEARCH", None)
+    try:
+        t0 = time.perf_counter()
+        p = Pipeline(config_from_args(args, argv), ref_p, use_cache=False,
+                     device="cuda")
+        return p, time.perf_counter() - t0
+    finally:
+        _env("NGMLR_TPU_DEVICE_SEARCH", old)
+
+
+def _run_on(p, reads_p):
+    """Map reads_p through p with the launch counters set to 0 just before.
+    Returns (SAM bytes, map s, the kernel launches of this run alone)."""
+    import torch
+    from ngmlr_tpu_torch.ops import kernels as K
+    buf = io.BytesIO()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    p.run(reads_p, buf)
+    torch.cuda.synchronize()
+    return buf.getvalue(), time.perf_counter() - t0, dict(K.launches)
+
+
+def _run_counted(tag, p, reads_p):
+    """_run_on, plus the run's own stats (the context's counters after it
+    less before it); its launches must equal its own waves, and no batch
+    may have left the device search. Returns (SAM, map s, launches,
+    stats)."""
+    before = dict(p.ctx.stats)
+    p.stats = {"reads": 0, "mapped": 0, "unmapped": 0}
+    out, t_run, launches = _run_on(p, reads_p)
+    delta = {k: v - before.get(k, 0) for k, v in p.ctx.stats.items()
+             if isinstance(v, (int, float)) and v != before.get(k, 0)}
+    check_launches(tag, launches, {"score_waves": 0, "align_waves": 0,
+                                   "search_v2_launches": 0, **delta})
+    fb = [k for k in delta if k.startswith("search_fallback_")]
+    check(not fb, "%s: the device search handed batches back: %s"
+          % (tag, fb))
+    return out, t_run, launches, delta
+
+
+def other_search_run(tag, p, reads_p, out):
+    """Map the same reads again on the same Pipeline (index built once) with
+    the other candidate search: the host search where the gate chose the
+    device search, else a DeviceSearch built now (its build time is what the
+    device search adds to setup). Its SAM must equal the first run's, byte
+    for byte. Returns its numbers."""
+    import torch
+    from ngmlr_tpu_torch.seed.device_search import DeviceSearch
+    first = p.dev_search
+    build_s = None
+    if first is None:
+        t0 = time.perf_counter()
+        p.dev_search = DeviceSearch(p.index, device=p.ctx.device)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    else:
+        p.dev_search = None
+    search = "host" if first is not None else "device"
+    try:
+        other, t_run, launches, delta = _run_counted(
+            "%s, %s search" % (tag, search), p, reads_p)
+    finally:
+        p.dev_search = first
+    rec = dict(search=search, device_search_build_s=build_s, map_s=t_run,
+               reads_per_s=p.stats["reads"] / t_run,
+               sam_identical=other == out, launches=launches, stats=delta)
+    log("%s, %s search on the same Pipeline: %s" % (tag, search,
+                                                   json.dumps(rec)))
+    check(rec["sam_identical"], "%s: the %s-search SAM differs"
+          % (tag, search))
+    return rec
+
+
+def phase_mapping(genome_mbp, n_reads, read_len, workdir, profile_dir=None):
+    """Phase 4: one chromosome with the default gate (the device search),
+    then again with the host search on the same Pipeline."""
+    import torch
+    ref_p, reads_p, _, origin = make_dataset(
+        np.random.default_rng(1234), genome_mbp, n_reads, read_len, workdir)
+    torch.cuda.reset_peak_memory_stats()
+    p, t_setup = _pipeline(ref_p, reads_p)
+    check(p.dev_search is not None, "the gate left the device search off")
+    if profile_dir:
+        (out, t_run, launches), prof = _profiled(
+            lambda: _run_on(p, reads_p), profile_dir)
+    else:
+        (out, t_run, launches), prof = _run_on(p, reads_p), None
+    summary = mapping_summary("mapping", genome_mbp, p, out, origin,
+                              t_setup, t_run, launches, prof)
+    for name in KERNELS:
+        check(launches[name] > 0,
+              "kernel %s was not launched on the main path" % name)
+    summary["host_search"] = other_search_run("mapping", p, reads_p, out)
+    return summary
+
+
+def first_batch_views(p, reads_p):
+    """The first intake batch as the runner's prepare stage lays it out:
+    (read buffer on the card, subread starts, lengths, sequences)."""
+    from ngmlr_tpu_torch.io.reads import read_batches
+    from ngmlr_tpu_torch.io.reference import _CHAR2CODE
+    rpl = p.cfg.read_part_length
+    batch = next(read_batches(reads_p, p.cfg.batch_reads))
+    reads = [r for r in batch if not r.empty]
+    buf = np.concatenate([_CHAR2CODE[np.frombuffer(r.seq, dtype=np.uint8)]
+                          for r in reads])
+    readbuf = p.ctx.upload_reads(buf)
+    starts, lens, seqs = [], [], []
+    off = 0
+    for r in reads:
+        n = r.subread_count(rpl)
+        parts = [(0, r.seq)] if n == 0 else \
+            [(j * rpl, r.subread_seq(j, rpl)) for j in range(n)]
+        for o, sq in parts:
+            starts.append(off + o)
+            lens.append(len(sq))
+            seqs.append(sq)
+        off += len(r.seq)
+    return (readbuf, np.asarray(starts, np.int32), np.asarray(lens, np.int32),
+            seqs)
+
+
+def check_first_batch(tag, p, reads_p):
+    """The first intake batch of reads_p through the device search and the
+    host search_batch: the same candidates, subread by subread."""
+    from ngmlr_tpu_torch.seed.candidates import search_batch
+    readbuf, starts, lens, seqs = first_batch_views(p, reads_p)
+    cfg = p.cfg
+    got = p.dev_search.search_views(readbuf, starts, lens, cfg.sensitivity,
+                                    cfg.min_kmer_hits)
+    want = search_batch(p.index, seqs, cfg.sensitivity, cfg.min_kmer_hits)
+    check(len(got) == len(want), "%s: the device search returned %d "
+          "subreads of %d" % (tag, len(got), len(want)))
+    bad = [i for i, (a, b) in enumerate(zip(want, got))
+           if not (np.array_equal(a.locations, b.locations)
+                   and np.array_equal(a.reverse, b.reverse)
+                   and np.array_equal(a.counts, b.counts)
+                   and a.mq_zero == b.mq_zero)]
+    n_cand = sum(len(c.locations) for c in want)
+    log("%s, first batch: %d subreads, %d candidates, %d differ from the "
+        "host search_batch" % (tag, len(want), n_cand, len(bad)))
+    check(not bad, "%s, first batch: subreads %s differ" % (tag, bad[:5]))
+    return dict(subreads=len(want), candidates=n_cand, differ=len(bad))
+
+
+def phase_large_genome(genome_mbp, n_reads, read_len, workdir,
+                       profile_dir=None):
+    """Phase 5: a chromosome-1-sized genome with a repeat family. Its 256
+    reads map with the default gate (the device search), then with the host
+    search on the same Pipeline; then the repeat reads the same two ways,
+    whose subreads in copies run the search's v1 path on the card. Each
+    pair of SAMs must be equal, and each file's first batch of candidates
+    equal to the host search_batch."""
+    import torch
+    ref_p, reads_p, rep_p, origin = make_dataset(
+        np.random.default_rng(2500), genome_mbp, n_reads, read_len, workdir,
+        repeats=True)
+    torch.cuda.reset_peak_memory_stats()
+    p, t_setup = _pipeline(ref_p, reads_p)
+    check(p.dev_search is not None, "the gate left the device search off")
+    resident = {"bucket_pairs": p.dev_search.bucket_pairs.nbytes,
+                "positions": p.dev_search.positions.nbytes,
+                "genome": p.ctx.genome.nbytes}
+    log("large genome: setup %.2f s, resident on the card %s"
+        % (t_setup, json.dumps(resident)))
+    if profile_dir:
+        (out, t_run, launches), prof = _profiled(
+            lambda: _run_on(p, reads_p), profile_dir)
+    else:
+        (out, t_run, launches), prof = _run_on(p, reads_p), None
+    summary = mapping_summary("large genome", genome_mbp, p, out, origin,
+                              t_setup, t_run, launches, prof)
+    summary["resident_bytes"] = resident
+    for name in KERNELS:
+        check(launches[name] > 0,
+              "kernel %s was not launched on the large-genome path" % name)
+    summary["host_search"] = other_search_run("large genome", p, reads_p, out)
+
+    # the repeat reads: v2 launch shapes, outliers and reruns on the card
+    rep_out, rep_s, rep_launches, st = _run_counted("repeat reads", p, rep_p)
+    classes = {k[len("search_v2_class_"):]: v for k, v in st.items()
+               if k.startswith("search_v2_class_")}
+    rep = dict(reads=p.stats["reads"], mapped=p.stats["mapped"],
+               map_s=rep_s, reads_per_s=p.stats["reads"] / rep_s,
+               primary_near_origin=near_origin(rep_out, origin),
+               v2_launches_by_BxL=classes, launches=rep_launches, stats=st)
+    log("repeat reads, device search: %s" % json.dumps(rep))
+    log("repeat reads: %d outlier subreads and %d v2 rows rerun through v1 "
+        "(%d v1 launches, %d v1 reruns) on the card"
+        % (st.get("search_v1_outliers", 0), st.get("search_v2_retry", 0),
+           st.get("search_v1_launches", 0), st.get("search_v1_rerun", 0)))
+    check(st.get("search_v1_outliers", 0) > 0
+          and st.get("search_v2_retry", 0) > 0,
+          "the repeat reads missed the v1 search or v2's reruns")
+    rep["host_search"] = other_search_run("repeat reads", p, rep_p, rep_out)
+    summary["repeat_reads"] = rep
+    summary["first_batch"] = check_first_batch("large genome", p, reads_p)
+    rep["first_batch"] = check_first_batch("repeat reads", p, rep_p)
     return summary
 
 
@@ -719,7 +1126,7 @@ def main():
     ap.add_argument("--out", default=None,
                     help="directory for a JSON record of every number")
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="trace phase 4 with torch.profiler into DIR")
+                    help="trace phases 4 and 5 with torch.profiler into DIR")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "ngmlr_tpu_torch")):
         log("FAIL: ngmlr_tpu_torch/ not found beside chip_smoke.py; run it "
@@ -755,14 +1162,20 @@ def main():
             os.path.join(HERE, "ngmlr_tpu_torch", "_build", "smoke"),
             args.profile)
         log("phase 4 (mapping): %.2f s" % (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        record["large_genome"] = phase_large_genome(
+            LARGE_GENOME_MBP, N_READS, READ_LEN,
+            os.path.join(HERE, "ngmlr_tpu_torch", "_build", "smoke_large"),
+            args.profile and os.path.join(args.profile, "large_genome"))
+        log("phase 5 (large genome): %.2f s" % (time.perf_counter() - t0))
+        # the launches of the one-chromosome run, the main path
         launches = record["mapping"]["launches"]
     except PhaseError as e:
         log("FAIL: %s" % e)
         _dump(args.out, record)
         return 1
     line = {"kernels": []}
-    for name in ("score_fill", "corridor_windows", "convex_fill",
-                 "convex_backtrack"):
+    for name in KERNELS:
         r = dict(kern[name])
         r["launches"] = launches[name]
         line["kernels"].append({k: r[k] for k in (

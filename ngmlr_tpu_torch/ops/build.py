@@ -111,6 +111,7 @@ def _bind(lib):
         "ngt_convex_fill": [p, i64, p, i64, p, p, p, p, i32, i32, i32,
                             p, p, p, p, p, p],
         "ngt_convex_backtrack": [p, p, p, p, p, i32, i32, i32, p, p, p, p, p],
+        "ngt_expand_votes": [p, p, p, i32, i32, i32, p, p, p, p],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)

@@ -200,7 +200,10 @@ class DeviceContext:
                       # what the kernel actually computes incl. bucket
                       # slack; useful = the problems' own corridor areas)
                       "cells_score": 0, "cells_score_useful": 0,
-                      "cells_align": 0, "cells_align_useful": 0}
+                      "cells_align": 0, "cells_align_useful": 0,
+                      # row-local device-search launches (one expand_votes
+                      # kernel each on the card; seed/device_search.py)
+                      "search_v2_launches": 0}
 
     def _upload(self, arr: np.ndarray):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)

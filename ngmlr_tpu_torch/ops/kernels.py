@@ -1,10 +1,11 @@
-"""The four hand-written CUDA kernels of the alignment path: their
-wrappers, their plain PyTorch versions and their launch counters.
+"""The five hand-written CUDA kernels of the port: their wrappers, their
+plain PyTorch versions and their launch counters.
 
   * score_fill        csrc/score_fill.cu        ungapped candidate scores
   * corridor_windows  csrc/corridor_windows.cu  per-wavefront row windows
   * convex_fill       csrc/convex_fill.cu       banded convex-gap fill
   * convex_backtrack  csrc/convex_backtrack.cu  reverse walk + 2-bit pack
+  * expand_votes      csrc/expand_votes.cu      device-search vote expansion
 
 Each wrapper takes its inputs on one device. On a CUDA tensor it launches
 the kernel (built at first use by ops/build.py) on the current stream,
@@ -14,12 +15,13 @@ tensor code after the JAX reference's XLA twins
 (ngmlr_tpu/ops/device_engine.py), which the CPU tests hold bit for bit
 against the reference. Any other device raises.
 
-Inputs are the packed int32 problem rows of the engine:
+The alignment kernels take the packed int32 problem rows of the engine:
   score rows [P, 7]:  ds u32, hi u32, diff, W, qstart, qlen, qrev
   align rows [B, 12]: the same seven, then corridor mode, ci, width,
                       k f32 bits, d f32 bits
-so the kernels gather reference and query codes from the genome and the
-read buffer themselves.
+so they gather reference and query codes from the genome and the read
+buffer themselves. expand_votes takes the per-row slot tables of the device
+candidate search (seed/device_search.py).
 """
 
 import threading
@@ -37,7 +39,7 @@ BIG = 1 << 30
 # kernel launches per wrapper since the last reset_launches(); the
 # pipeline launches from several threads, so updates take the lock
 launches = {"score_fill": 0, "corridor_windows": 0, "convex_fill": 0,
-            "convex_backtrack": 0}
+            "convex_backtrack": 0, "expand_votes": 0}
 _launches_lock = threading.Lock()
 
 
@@ -454,3 +456,55 @@ def pack_ops(ops):
     o4 = ops.reshape(ops.shape[0], -1, 4).to(torch.uint8)
     return (o4[..., 0] | (o4[..., 1] << 2) | (o4[..., 2] << 4)
             | (o4[..., 3] << 6))
+
+
+# ---------------------------------------------------------------------------
+# expand_votes
+# ---------------------------------------------------------------------------
+
+def expand_votes(cum2, d2tp, ct2p, L: int):
+    """Per-vote slot values of device search v2's row-local tables. cum2
+    int32 [B, SL2] is each row's inclusive cumsum of per-slot vote counts
+    (at most L votes a row); d2tp / ct2p int32 [B, SL2 + 1] are the per-slot
+    position-index bases and bin corrections, pad slot last. Returns slot,
+    d2t, ct int32 [B, L]: vote l of row b lies in slot
+    #{j : cum2[b, j] <= l} (SL2 past the row's votes) and takes that slot's
+    d2tp and ct2p."""
+    name = "expand_votes"
+    _need(name, "cum2", cum2, torch.int32, 2)
+    _need(name, "d2tp", d2tp, torch.int32, 2)
+    _need(name, "ct2p", ct2p, torch.int32, 2)
+    B, SL2 = cum2.shape
+    if d2tp.shape != (B, SL2 + 1) or ct2p.shape != (B, SL2 + 1):
+        raise ValueError("%s: inconsistent shapes" % name)
+    if not _on_cuda(name, cum2, d2tp, ct2p):
+        return expand_votes_plain(cum2, d2tp, ct2p, L)
+    dev = cum2.device
+    slot = torch.empty((B, L), dtype=torch.int32, device=dev)
+    d2t = torch.empty_like(slot)
+    ct = torch.empty_like(slot)
+    if B == 0 or L == 0:
+        return slot, d2t, ct
+    _launch(name, _lib().ngt_expand_votes, cum2.data_ptr(), d2tp.data_ptr(),
+            ct2p.data_ptr(), B, SL2, L, slot.data_ptr(), d2t.data_ptr(),
+            ct.data_ptr(), _stream())
+    return slot, d2t, ct
+
+
+def expand_votes_plain(cum2, d2tp, ct2p, L: int):
+    """The XLA twin's formulation (ngmlr_tpu/seed/device_search.py:411-419):
+    one flat repeat of the slot ids by the per-slot counts, the pad slot
+    taking each row's L - nv leftover votes so the total is exactly B * L,
+    then a gather of the two slot tables."""
+    B, SL2 = cum2.shape
+    dev = cum2.device
+    c2 = torch.diff(cum2, dim=1,
+                    prepend=torch.zeros((B, 1), dtype=torch.int32, device=dev))
+    c2p = torch.cat([c2, L - cum2[:, -1:]], dim=1)
+    kmer_f = torch.repeat_interleave(
+        torch.arange(B * (SL2 + 1), device=dev), c2p.reshape(-1).long(),
+        output_size=B * L)
+    slot = (kmer_f % (SL2 + 1)).to(torch.int32).reshape(B, L)
+    d2t = d2tp.reshape(-1)[kmer_f].reshape(B, L)
+    ct = ct2p.reshape(-1)[kmer_f].reshape(B, L)
+    return slot, d2t, ct

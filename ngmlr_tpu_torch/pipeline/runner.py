@@ -47,6 +47,22 @@ def _wave_depth(device) -> int:
     return 2 if device.type == "cuda" else 1
 
 
+def device_search_wanted(n_units: int, device, subread_len: int) -> bool:
+    """The device candidate search gate: NGMLR_TPU_DEVICE_SEARCH=1 turns it
+    on, =0 off; unset, it is on for a CUDA device at any genome size (on
+    the H100 it beats the host search from a chromosome up, and a small
+    genome pays only its table build once). Never for a multi-unit genome
+    (its tables are uint32; the host search carries int64 positions) nor
+    for subreads longer than the search's SL slots (--subread-length past
+    its default)."""
+    import os
+    from ..seed.device_search import SL
+    use_dev = os.environ.get("NGMLR_TPU_DEVICE_SEARCH")
+    if n_units > 1 or subread_len > SL:
+        return False
+    return use_dev == "1" or (use_dev != "0" and device.type == "cuda")
+
+
 class Pipeline:
     def __init__(self, cfg: Config, reference_path: str,
                  use_cache: bool = True, device=None):
@@ -72,8 +88,14 @@ class Pipeline:
                                                unit_spec=unit_spec,
                                                device=device)
         device_engine.set_current(self.ctx)
-        # candidate search runs on the host; the device search is not
-        # ported yet (ROADMAP open item 1.5)
+        # candidate search runs on the card (the host path is the oracle
+        # and the CPU's search; at human scale it dominates the host's wall
+        # time). Decided once here: a batch never changes search midway
+        self.dev_search = None
+        if device_search_wanted(self.ref.n_units, self.ctx.device,
+                                self.cfg.read_part_length):
+            from ..seed.device_search import DeviceSearch
+            self.dev_search = DeviceSearch(self.index, device=self.ctx.device)
         import os as _os
         self.processor = LongReadProcessor(self.ref, self.cfg)
         self.acfg = self.processor.acfg
@@ -234,10 +256,22 @@ class Pipeline:
         self.ctx.stats["prep_enc_s"] = (self.ctx.stats.get("prep_enc_s", 0.0)
                                         + time.perf_counter() - tp)
         tp = time.perf_counter()
-        cands = search_batch(self.index, seqs, cfg.sensitivity,
-                             cfg.min_kmer_hits,
-                             n_units=self.ref.n_units,
-                             unit_bits=self.ref.unit_bits)
+        if self.dev_search is not None:
+            # descriptor path: the subreads are views of the read buffer
+            # already uploaded above — no re-encode, no k-mer upload
+            starts = np.empty(len(owners), dtype=np.int32)
+            lens = np.empty(len(owners), dtype=np.int32)
+            for oi, ((ri, j), s) in enumerate(zip(owners, seqs)):
+                starts[oi] = batch[ri].buf_offset + (0 if j < 0 else j * rpl)
+                lens[oi] = len(s)
+            cands = self.dev_search.search_views(readbuf, starts, lens,
+                                                 cfg.sensitivity,
+                                                 cfg.min_kmer_hits)
+        else:
+            cands = search_batch(self.index, seqs, cfg.sensitivity,
+                                 cfg.min_kmer_hits,
+                                 n_units=self.ref.n_units,
+                                 unit_bits=self.ref.unit_bits)
         self.ctx.stats["prep_search_s"] = (
             self.ctx.stats.get("prep_search_s", 0.0)
             + time.perf_counter() - tp)

@@ -1,5 +1,6 @@
-"""The four CUDA kernels of the port against their plain PyTorch versions,
-on the card. Marked ``cuda``: every test skips where torch sees no card.
+"""The five CUDA kernels of the port against their plain PyTorch versions,
+and the device candidate search against the host search, on the card.
+Marked ``cuda``: every test skips where torch sees no card.
 The file imports neither jax nor the test conftest, so it also runs on a
 machine with a card and no JAX:
 
@@ -16,6 +17,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from ngmlr_tpu_torch.ops import device_engine as tde  # noqa: E402
 from ngmlr_tpu_torch.ops import kernels as K  # noqa: E402
 from ngmlr_tpu_torch.ops.device_engine import _convex_kernel  # noqa: E402
 
@@ -151,4 +153,158 @@ def test_golden_test2_on_the_card(dev):
     def rec(b):
         return [l for l in b.split(b"\n") if not l.startswith(b"@PG")]
     assert rec(buf.getvalue()) == rec(want)
-    assert all(n > 0 for n in K.launches.values()), K.launches
+    # the card searches candidates itself, at any genome size
+    assert p.dev_search is not None
+    assert K.launches["expand_votes"] == p.ctx.stats["search_v2_launches"]
+    assert all(K.launches[k] > 0 for k in K.launches), K.launches
+
+
+@pytest.mark.parametrize("B,L", [(256, 768), (8, 32768)])
+def test_expand_votes_kernel_matches_plain(dev, B, L):
+    """Rows with no vote, exactly L votes, and all votes in one slot."""
+    from chip_smoke import slot_tables
+    t = [torch.from_numpy(x).to(dev) for x in slot_tables(
+        np.random.default_rng(B), B, L, 1 << 28, ragged=True)]
+    n0 = K.launches["expand_votes"]
+    got = K.expand_votes(*t, L)
+    assert K.launches["expand_votes"] == n0 + 1
+    want = K.expand_votes_plain(*t, L)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_device_search_on_the_card_matches_host(dev, tmp_path):
+    """The seed-0 input of tests/test_device_search.py (400 kb, 300 mutated
+    subreads and two without hits) through DeviceSearch on the card; every
+    row-local launch is one expand_votes launch."""
+    from ngmlr_tpu_torch.index.kmer_index import KmerIndex
+    from ngmlr_tpu_torch.io.reference import ReferenceGenome
+    from ngmlr_tpu_torch.seed.candidates import search_batch
+    from ngmlr_tpu_torch.seed.device_search import DeviceSearch
+    rng = np.random.default_rng(0)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    genome = bases[rng.integers(0, 4, size=400_000)]
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    seqs = []
+    for _ in range(300):
+        L = int(rng.integers(40, 257))
+        pos = int(rng.integers(0, len(genome) - L))
+        s = bytearray(genome[pos:pos + L].tobytes())
+        for _ in range(L // 10):
+            s[int(rng.integers(0, L))] = b"ACGT"[int(rng.integers(0, 4))]
+        s = bytes(s)
+        if rng.random() < 0.5:
+            s = s.translate(comp)[::-1]
+        if rng.random() < 0.05:
+            s = s[:10] + b"N" * int(rng.integers(1, 5)) + s[10:]
+        seqs.append(s)
+    seqs += [b"N" * 60, b"ACGT" * 3]
+    fa = tmp_path / "ref.fa"
+    g = genome.tobytes()
+    fa.write_bytes(b">chr1\n" + b"".join(g[i:i + 70] + b"\n"
+                                         for i in range(0, len(g), 70)))
+    ref = ReferenceGenome.from_fasta(str(fa), use_cache=False)
+    idx = KmerIndex.build(ref)
+    want = search_batch(idx, seqs)
+    ctx = tde.DeviceContext(ref.codes, device=dev)
+    tde.set_current(ctx)
+    try:
+        n0 = K.launches["expand_votes"]
+        got = DeviceSearch(idx, device=dev).search_batch(seqs)
+        torch.cuda.synchronize()
+        n_launch = K.launches["expand_votes"] - n0
+    finally:
+        tde.set_current(None)
+    assert got is not None and len(got) == len(want)
+    for i, (h, d) in enumerate(zip(want, got)):
+        np.testing.assert_array_equal(h.locations, d.locations, err_msg=str(i))
+        np.testing.assert_array_equal(h.reverse, d.reverse, err_msg=str(i))
+        np.testing.assert_array_equal(h.counts, d.counts, err_msg=str(i))
+        assert h.mq_zero == d.mq_zero, i
+    assert n_launch == ctx.stats["search_v2_launches"] > 0
+
+
+def _search_on_card(dev, idx, seqs, ref_codes):
+    """DeviceSearch on the card with a fresh context: (candidates, stats,
+    expand_votes launches)."""
+    from ngmlr_tpu_torch.seed.device_search import DeviceSearch
+    ctx = tde.DeviceContext(ref_codes, device=dev)
+    tde.set_current(ctx)
+    try:
+        n0 = K.launches["expand_votes"]
+        got = DeviceSearch(idx, device=dev).search_batch(seqs)
+        torch.cuda.synchronize()
+        return got, ctx.stats, K.launches["expand_votes"] - n0
+    finally:
+        tde.set_current(None)
+
+
+def _assert_same(want, got):
+    assert got is not None and len(got) == len(want)
+    for i, (h, d) in enumerate(zip(want, got)):
+        np.testing.assert_array_equal(h.locations, d.locations, err_msg=str(i))
+        np.testing.assert_array_equal(h.reverse, d.reverse, err_msg=str(i))
+        np.testing.assert_array_equal(h.counts, d.counts, err_msg=str(i))
+        assert h.mq_zero == d.mq_zero, i
+
+
+def test_device_search_escape_paths_stay_on_the_card(dev, tmp_path,
+                                                     monkeypatch):
+    """Every path that once handed a batch back to the host now runs on the
+    card: with tiny caps (the overflow input of tests/test_device_search.py:
+    a 171 bp tandem repeat x 100), rows past E_CAP / NE2 rerun through v1,
+    subreads past L_V2_MAX go to v1, and v1 runs past NE_CAP rerun with room
+    for all their entries; a group of more than 2^16 votes counts exactly;
+    a subread longer than SL raises rather than leave the card."""
+    from ngmlr_tpu_torch.index.kmer_index import KmerIndex
+    from ngmlr_tpu_torch.io.reference import ReferenceGenome
+    from ngmlr_tpu_torch.seed import device_search as tds
+    from ngmlr_tpu_torch.seed.candidates import search_batch
+    rng = np.random.default_rng(9)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    genome = bases[rng.integers(0, 4, size=200_000)]
+    genome[50_000:50_000 + 171 * 100] = np.tile(
+        bases[rng.integers(0, 4, size=171)], 100)
+    seqs = []
+    for _ in range(60):
+        L = int(rng.integers(100, 257))
+        pos = int(rng.integers(0, len(genome) - L))
+        seqs.append(genome[pos:pos + L].tobytes())
+    for _ in range(6):
+        pos = 50_000 + int(rng.integers(0, 171 * 90))
+        seqs.append(genome[pos:pos + 256].tobytes())
+    fa = tmp_path / "ref.fa"
+    g = genome.tobytes()
+    fa.write_bytes(b">chr1\n" + b"".join(g[i:i + 70] + b"\n"
+                                         for i in range(0, len(g), 70)))
+    ref = ReferenceGenome.from_fasta(str(fa), use_cache=False)
+    idx = KmerIndex.build(ref)
+    want = search_batch(idx, seqs)
+    for caps in ({"E_CAP": 4, "NE2": 64},
+                 {"E_CAP": 4, "NE2": 64, "L_V2_MAX": 2048, "NE_CAP": 8}):
+        with monkeypatch.context() as m:
+            for k, v in caps.items():
+                m.setattr(tds, k, v)
+            got, st, n_launch = _search_on_card(dev, idx, seqs, ref.codes)
+        _assert_same(want, got)
+        assert not [k for k in st if k.startswith("search_fallback_")], st
+        assert n_launch == st["search_v2_launches"] > 0
+        if "L_V2_MAX" in caps:
+            assert st["search_v1_outliers"] > 0 and st["search_v1_rerun"] > 0
+        else:
+            assert st["search_v2_retry"] > 0
+        assert st["search_v1_launches"] > 0
+
+    # one group of 253 x 300 = 75,900 votes (k = 4, AAAA at 300 positions
+    # inside one 4096-wide bin)
+    bs = np.zeros(4 ** 4 + 1, np.int64)
+    bs[1:] = 300
+    big = KmerIndex(4, bs, np.arange(1000, 1300, dtype=np.uint32), 12, 2)
+    seqs = [b"A" * 256, b"ACGT" * 40]
+    got, st, _ = _search_on_card(dev, big, seqs, ref.codes)
+    _assert_same(search_batch(big, seqs), got)
+    assert got[0].counts.max() == 253 * 300
+
+    with pytest.raises(ValueError, match="longer than"):
+        _search_on_card(dev, idx, [b"A" * (tds.SL + 1)], ref.codes)
