@@ -7,7 +7,8 @@ Phases, each printed with its wall time:
   1. card and build: the card's name and power limit, nvcc build of the five
      kernels from csrc/ (one nvcc per source, started together);
   2. each kernel against its plain PyTorch version on the card, bit for bit,
-     at the shapes of the main path and the wide lane classes, with the
+     at the shapes of the main path and the wide lane classes (and the edge
+     cases of the tiled corridor_windows and convex_backtrack), with the
      kernel's, the plain version's and (where one exists) a library call's
      times, and the bound worked out from this run's inputs;
   3. the goldens: the nine checks of scripts/check_goldens.sh (test_2
@@ -29,7 +30,9 @@ Phases, each printed with its wall time:
      Pipeline, byte-identical, and each file's first batch of candidates
      equals the host search_batch subread by subread.
 With --profile DIR, torch.profiler traces the first mapping of phases 4
-and 5 (device time by kernel and the busy share). Then one JSON line
+and 5 (device time by kernel and the busy share; in phase 4 also the
+launch shapes of corridor_windows and convex_backtrack and their device ms
+per launch). Then one JSON line
 listing every kernel, the card's line from nvidia-smi, and the final line
 {"ok": true, "device": {...}}.
 
@@ -46,11 +49,13 @@ repository checkout (it imports ngmlr_tpu_torch from beside this file).
 """
 
 import argparse
+import contextlib
 import io
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -78,8 +83,8 @@ ALU_OPS_S = ISSUE_OPS_S / 2
 # score_fill, per cell: compares q == r, r < 4, two selects for s, the add,
 #   the floor at 0 and the running best
 OPS_SCORE_CELL = (0, 7)
-# corridor_windows, per problem and wavefront: two key compares and two
-# pointer adds, the window height and its running max; per row, the two
+# corridor_windows, per problem and wavefront: the two counts (a mark and
+# a scan add each), the window height and its running max; per row, the two
 # keys (conversion, subtract, divide ~10 FMA-pipe instructions as
 # __fdiv_rn expands, convert back; clamps, max, add: 8 ALU each)
 OPS_WINDOW_STEP = (0, 6)
@@ -92,10 +97,11 @@ OPS_WINDOW_ROW = (20, 16)
 # the floor (3); the tie tests (3); the direction and run chain (11); the
 # STOP zeroing (2); the best-cell order (11); packing run and direction (2)
 OPS_FILL_CELL = (9, 49)
-# convex_backtrack, per walk step: the lane and its bounds (3), the STOP
-# test (1), the validPath band (convert, 2 adds + 1 subtract, 2 converts
-# back; 2 compares), the op's pack (2), the two moves (6), the edge test
-# (2) and the step's wavefront test (2)
+# convex_backtrack, per walk step, the walk's own tests as the plain
+# version makes them: the lane and its bounds (3), the STOP test (1), the
+# validPath band (convert, 2 adds + 1 subtract, 2 converts back; 2
+# compares), the op's pack (2), the two moves (6), the edge test (2) and
+# the step's wavefront test (2)
 OPS_WALK_STEP = (3, 21)
 # expand_votes, per vote and binary-search step: the compare and the select
 # of the next bound (ceil(log2(SL2 + 1)) = 10 steps for 544 slots)
@@ -280,6 +286,137 @@ def align_rows(rng, genome, readbuf, B, Wr, Hr, widths, modes,
     return pk
 
 
+# the edge cases of the tiled corridor_windows kernel (1024-wavefront tiles):
+# name -> (B, TpP, W and H below); every case cycles the four modes
+CW_EDGES = {
+    "tpp-512": (64, 512, 400, 400),           # below one tile
+    "ragged-tile": (96, 3 * 1024 + 160, 2000, 2000),
+    "first-key-tiles-up": (40, 8192, 8000, 3000),
+    "tall": (48, 1024, 800, 5000),            # H past TpP
+    "one-problem": (1, 2048, 1500, 1500),
+    "odd-B": (37, 4096, 3000, 3000),
+}
+
+
+def cw_edge_case(name):
+    """(align rows int32 [B, 12], TpP) of one corridor_windows edge case.
+    With B >= 8, rows 1-3 have H = 0, width 0 and width < 0. In
+    first-key-tiles-up every corridor starts 2000-5000 wavefronts up (FULL
+    ci, LINEAR -ci, ENDPOINTS and ANCHORS d), so a row's first key lies
+    several tiles above t = 0."""
+    B, TpP, Wmax, Hmax = CW_EDGES[name]
+    rng = np.random.default_rng(100 + list(CW_EDGES).index(name))
+    pk = np.zeros((B, 12), np.int32)
+    pkf = pk.view(np.float32)
+    mode = np.arange(B) % 4
+    pk[:, 7] = mode
+    pk[:, 3] = rng.integers(1, Wmax, B)
+    pk[:, 5] = rng.integers(0, Hmax, B)
+    pk[:, 8] = rng.integers(-50, 200, B)
+    pk[:, 9] = rng.integers(1, max(2, Wmax // 2), B)
+    k = rng.uniform(0.05, 3.0, B).astype(np.float32)
+    d = rng.uniform(-100.0, 100.0, B).astype(np.float32)
+    if name == "first-key-tiles-up":
+        far = rng.integers(2000, 5000, B)
+        pk[:, 3] = rng.integers(6000, 8000, B)
+        pk[:, 8] = np.where(mode == 0, far, np.where(mode == 1, -far, 0))
+        k = rng.uniform(0.5, 2.0, B).astype(np.float32)
+        d = np.where(mode == 2, -far * k, -far).astype(np.float32)
+    if name == "tall":
+        pk[:, 5] = rng.integers(TpP + 1, Hmax, B)
+    if B >= 8:
+        pk[1, 5] = 0
+        pk[2, 9] = 0
+        pk[3, 9] = -int(rng.integers(1, 50))
+    pkf[:, 10], pkf[:, 11] = k, d
+    return pk, TpP
+
+
+# the edge cases of the tiled convex_backtrack kernel, whose tiles hold
+# BT_TILE wavefronts (R in csrc/convex_backtrack.cu): name -> (B, TpP, L,
+# kind of problem 0); problem b takes kind BT_KINDS[(first + b) % 9]. L130
+# takes the kernel's path for an L that is not a multiple of 4.
+BT_TILE = 60
+BT_EDGES = {
+    "L128": (13, 2048, 128, 0),
+    "L1536": (6, 1024, 1536, 2),
+    "L12288": (3, 1024, 12288, 5),
+    "one-problem": (1, 4096, 256, 3),
+    "L130": (5, 1024, 130, 3),
+}
+BT_KINDS = ("top", "by-0", "by-negative", "stop-on-tile-boundary",
+            "validpath-exit", "off-x", "off-y", "random", "del-run")
+
+
+def bt_edge_case(name):
+    """(dirs u8 [B, TpP, L], ymin int32 [B, TpP], align rows int32 [B, 12],
+    bx, by int32 [B], {b: (state, sx, sy) the walk must end in}) of one
+    convex_backtrack edge case. Random directions (1 in 4096 a STOP) and a
+    FULL corridor whose validPath band holds every cell, except where the
+    kind sets them: top starts at wavefront TpP - 1; by-0 and by-negative
+    fail at once; stop-on-tile-boundary walks INS to a STOP at a wavefront
+    that is a multiple of BT_TILE; validpath-exit walks DEL out of a LINEAR
+    band; off-x walks DEL past x = 0, off-y INS past y = 0; del-run walks
+    DEL from a tile's top row across several tiles and off the matrix (each
+    tile is left 120 columns from where it was entered)."""
+    B, TpP, L, first = BT_EDGES[name]
+    rng = np.random.default_rng(200 + list(BT_EDGES).index(name))
+    dirs = rng.integers(1, 4, (B, TpP, L), dtype=np.uint8)
+    flat = dirs.reshape(-1)
+    flat[rng.integers(0, flat.size, flat.size // 4096)] = 0
+    t = np.arange(TpP)
+    ymin = np.repeat(np.maximum(0, t // 2 - L // 2)[None, :], B, axis=0)
+    ymin = ymin.astype(np.int32)
+    pk = np.zeros((B, 12), np.int32)
+    pk[:, 3], pk[:, 5] = TpP, TpP
+    pk[:, 8], pk[:, 9] = -2 * TpP, 10 * TpP      # FULL: band holds all x
+    pk.view(np.float32)[:, 10] = 1.0
+    bx = rng.integers(TpP // 8, TpP // 2, B).astype(np.int32)
+    by = rng.integers(TpP // 8, TpP // 2, B).astype(np.int32)
+    expect = {}
+    DONE, FAIL = 1, 2
+    for b in range(B):
+        kind = BT_KINDS[(first + b) % len(BT_KINDS)]
+        if kind == "top":
+            by[b] = TpP // 2
+            bx[b] = TpP - 1 - by[b]
+        elif kind in ("by-0", "by-negative"):
+            bx[b], by[b] = 100, 0 if kind == "by-0" else -3
+            expect[b] = (FAIL, -1, -1)
+        elif kind == "stop-on-tile-boundary":
+            x0, t0 = 100, TpP - 38
+            ts = BT_TILE * (t0 // BT_TILE - 2)
+            dirs[b] = 2                          # INS: y - 1, t - 1
+            ymin[b] = np.maximum(0, t - x0 - L // 2)
+            dirs[b, ts, ts - x0 - ymin[b, ts]] = 0
+            bx[b], by[b] = x0, t0 - x0
+            expect[b] = (DONE, x0, ts - x0)
+        elif kind == "validpath-exit":
+            y0 = TpP // 4
+            dirs[b] = 3                          # DEL: x - 1, t - 1
+            ymin[b] = y0 - L // 2
+            pk[b, 7:10] = (1, 0, 100)            # LINEAR: y + 10 < x < y + 100
+            bx[b], by[b] = y0 + 40, y0
+            expect[b] = (FAIL, -1, -1)
+        elif kind == "off-x":
+            dirs[b] = 3
+            ymin[b] = 300 - L // 2
+            bx[b], by[b] = 5, 300
+            expect[b] = (DONE, -1, 300)
+        elif kind == "off-y":
+            dirs[b] = 2
+            ymin[b] = 0
+            bx[b], by[b] = 300, 5
+            expect[b] = (DONE, 300, -1)
+        elif kind == "del-run":
+            y0, t0 = 200, BT_TILE * (TpP // BT_TILE // 2) + BT_TILE - 1
+            dirs[b] = 3
+            ymin[b] = y0 - L // 2
+            bx[b], by[b] = t0 - y0, y0
+            expect[b] = (DONE, -1, y0)
+    return dirs, ymin, pk, bx, by, expect
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -360,6 +497,15 @@ def phase_kernels(rng, dev="cuda"):
     log("corridor_windows B=%d TpP=%d: max_abs_err=%g kernel_ms=%.4f "
         "plain_ms=%.2f library_ms=%.4f bound_ms=%.4f"
         % (B, TpP, err, ms, plain_ms, lib_ms, b))
+    for name in CW_EDGES:
+        epk_np, eT = cw_edge_case(name)
+        epk = torch.from_numpy(epk_np).to(dev)
+        e = max_abs_err(zip(K.corridor_windows(epk, eT),
+                            K.corridor_windows_plain(epk, eT)))
+        rec["corridor_windows"]["max_abs_err"] = max(
+            rec["corridor_windows"]["max_abs_err"], e)
+        log("corridor_windows edge %s B=%d TpP=%d: max_abs_err=%g"
+            % (name, epk.shape[0], eT, e))
 
     # convex fill + backtrack: small all-modes shape, the main-path shape
     # (timed), the wide lane classes
@@ -452,6 +598,22 @@ def phase_kernels(rng, dev="cuda"):
                 library_ms=None)
         del got, want, bt, bt_want, dirs
         torch.cuda.empty_cache()
+    for name in BT_EDGES:
+        *arrays, expect = bt_edge_case(name)
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
+        got = K.convex_backtrack(*args)
+        want = K.convex_backtrack_plain(*args)
+        e = max_abs_err(zip(got, want))
+        bt_err = max(bt_err, e)
+        ends = [(int(want[3][b]), int(want[1][b]), int(want[2][b]))
+                for b in range(args[0].shape[0])]
+        check(all(ends[b] == v for b, v in expect.items()),
+              "backtrack edge %s: the walks end as %s, not as %s"
+              % (name, ends, expect))
+        log("convex_backtrack edge %s B=%d TpP=%d L=%d: max_abs_err=%g, "
+            "walk ends (state, x, y) %s" % ((name,) + tuple(args[0].shape)
+                                            + (e, ends)))
+        del args, got, want
     rec["convex_fill"]["max_abs_err"] = fill_err
     rec["convex_backtrack"]["max_abs_err"] = bt_err
     rec["expand_votes"] = phase_expand_votes(rng, dev)
@@ -748,9 +910,75 @@ def write_fasta(path, records):
                 f.write(seq[i:i + 80] + b"\n")
 
 
-def _profiled(fn, out_dir):
+# the wrappers whose launch shapes and per-launch device times phase 4 logs
+# under --profile, with the CUDA kernels each launch runs
+PER_LAUNCH = {"corridor_windows": ("hmax_init_kernel",
+                                   "corridor_windows_kernel"),
+              "convex_backtrack": ("convex_backtrack_kernel",)}
+
+
+@contextlib.contextmanager
+def recorded_shapes():
+    """Stand in for the PER_LAUNCH wrappers of ngmlr_tpu_torch.ops.kernels,
+    recording each call's shape ((B, TpP) and (B, TpP, L)) before calling
+    the wrapper. One lock around record and launch keeps the record in
+    launch order: the pipeline launches from several threads, all on the
+    default stream. Yields {wrapper: [shape, ...]}."""
+    from ngmlr_tpu_torch.ops import kernels as K
+    shapes = {n: [] for n in PER_LAUNCH}
+    orig = {n: getattr(K, n) for n in PER_LAUNCH}
+    lock = threading.Lock()
+
+    def cw(pk, TpP):
+        with lock:
+            shapes["corridor_windows"].append((pk.shape[0], TpP))
+            return orig["corridor_windows"](pk, TpP)
+
+    def bt(dirs, ymin, pk, bx, by):
+        with lock:
+            shapes["convex_backtrack"].append(tuple(dirs.shape))
+            return orig["convex_backtrack"](dirs, ymin, pk, bx, by)
+    K.corridor_windows, K.convex_backtrack = cw, bt
+    try:
+        yield shapes
+    finally:
+        for n, f in orig.items():
+            setattr(K, n, f)
+
+
+def per_launch_times(events, shapes):
+    """Match each recorded launch to its kernels' device times in the
+    trace (events in start order) and sum them by launch shape. Returns
+    {wrapper: {"shape": {launches, device_ms, ms_per_launch}}}, or a note
+    where the trace and the record disagree in count."""
+    import torch
+    dev = sorted((e.time_range.start, e.name, e.time_range.elapsed_us() / 1e3)
+                 for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    out = {}
+    for w, kernels in PER_LAUNCH.items():
+        per = [[ms for _, name, ms in dev if k in name] for k in kernels]
+        n = len(shapes[w])
+        if any(len(p) != n for p in per):
+            out[w] = {"note": "%d launches recorded, kernels traced %s"
+                      % (n, [len(p) for p in per])}
+            continue
+        groups = {}
+        for i, shape in enumerate(shapes[w]):
+            g = groups.setdefault("x".join(map(str, shape)),
+                                  {"launches": 0, "device_ms": 0.0})
+            g["launches"] += 1
+            g["device_ms"] += sum(p[i] for p in per)
+        for g in groups.values():
+            g["ms_per_launch"] = g["device_ms"] / g["launches"]
+        out[w] = groups
+    return out
+
+
+def _profiled(fn, out_dir, shapes=None):
     """Run fn() under torch.profiler (CPU + CUDA activities). Returns
-    (fn's result, {device_ms_total, per-name device ms and counts}); writes
+    (fn's result, {device_ms_total, per-name device ms and counts, and with
+    shapes (from recorded_shapes) the per-launch times by shape}); writes
     the key_averages table into out_dir."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -775,7 +1003,12 @@ def _profiled(fn, out_dir):
     top = [{"name": n[:80], "device_ms": ms, "count": c}
            for n, ms, c in rows[:12]]
     log("profile: device time by name: " + json.dumps(top))
-    return r, {"device_ms_total": sum(ms for _, ms, _ in rows), "top": top}
+    summary = {"device_ms_total": sum(ms for _, ms, _ in rows), "top": top}
+    if shapes is not None:
+        summary["per_launch"] = per_launch_times(prof.events(), shapes)
+        log("profile: device ms by launch shape (B x TpP [x L]): "
+            + json.dumps(summary["per_launch"]))
+    return r, summary
 
 
 def plant_repeats(rng, genome):
@@ -1003,8 +1236,9 @@ def phase_mapping(genome_mbp, n_reads, read_len, workdir, profile_dir=None):
     p, t_setup = _pipeline(ref_p, reads_p)
     check(p.dev_search is not None, "the gate left the device search off")
     if profile_dir:
-        (out, t_run, launches), prof = _profiled(
-            lambda: _run_on(p, reads_p), profile_dir)
+        with recorded_shapes() as shapes:
+            (out, t_run, launches), prof = _profiled(
+                lambda: _run_on(p, reads_p), profile_dir, shapes)
     else:
         (out, t_run, launches), prof = _run_on(p, reads_p), None
     summary = mapping_summary("mapping", genome_mbp, p, out, origin,

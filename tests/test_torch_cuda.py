@@ -20,6 +20,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from ngmlr_tpu_torch.ops import device_engine as tde  # noqa: E402
 from ngmlr_tpu_torch.ops import kernels as K  # noqa: E402
 from ngmlr_tpu_torch.ops.device_engine import _convex_kernel  # noqa: E402
+from chip_smoke import (BT_EDGES, CW_EDGES, bt_edge_case,  # noqa: E402
+                        cw_edge_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -89,7 +91,7 @@ def test_score_fill_kernel_matches_plain(dev):
         assert torch.equal(got, want), (W, qlen)
 
 
-def test_corridor_windows_kernel_matches_plain(dev):
+def _original_cw_case():
     rng = np.random.default_rng(2)
     B, TpP = 100, 2048
     pk = np.zeros((B, 12), np.int32)
@@ -100,12 +102,44 @@ def test_corridor_windows_kernel_matches_plain(dev):
     pk[:, 9] = rng.integers(-20, 400, B)
     pk.view(np.float32)[:, 10] = rng.uniform(0.05, 3.0, B)
     pk.view(np.float32)[:, 11] = rng.uniform(-100, 100, B)
+    return pk, TpP
+
+
+@pytest.mark.parametrize("case", ["random"] + list(CW_EDGES))
+def test_corridor_windows_kernel_matches_plain(dev, case):
+    """The tiled kernel's edges (chip_smoke.cw_edge_case): TpP below one
+    tile, a ragged last tile, first keys several tiles up, H past TpP, one
+    problem and an odd B; all four modes, H = 0 and width <= 0 rows."""
+    pk, TpP = _original_cw_case() if case == "random" else cw_edge_case(case)
     pkt = torch.from_numpy(pk).to(dev)
+    n0 = K.launches["corridor_windows"]
     got = K.corridor_windows(pkt, TpP)
+    assert K.launches["corridor_windows"] == n0 + 1
     want = K.corridor_windows_plain(pkt, TpP)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", list(BT_EDGES))
+def test_convex_backtrack_edges_match_plain(dev, case):
+    """The tiled walk's edges (chip_smoke.bt_edge_case): a walk from the top
+    wavefront, by <= 0, a STOP on a tile boundary, a validPath exit, steps
+    off the matrix in x and in y, a DEL run across tiles (leaving each tile
+    at its widest reach), L = 128, 1536, 12288 and 130 (not a
+    multiple of 4), B = 1 and odd B."""
+    *arrays, expect = bt_edge_case(case)
+    args = [torch.from_numpy(a).to(dev) for a in arrays]
+    n0 = K.launches["convex_backtrack"]
+    got = K.convex_backtrack(*args)
+    assert K.launches["convex_backtrack"] == n0 + 1
+    want = K.convex_backtrack_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for b, (state, sx, sy) in expect.items():
+        assert (int(want[3][b]), int(want[1][b]), int(want[2][b])) \
+            == (state, sx, sy), b
 
 
 @pytest.mark.parametrize("Wp,Hp,L", [(1024, 1024, 128), (2048, 1024, 1536),

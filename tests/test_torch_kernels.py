@@ -7,6 +7,9 @@ against _convex_kernel(impl="scan") on the [B, 7] scalars and the flat
 packed ops. Inputs are made from numpy seeds and handed to both packages.
 """
 
+import io
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -281,12 +284,10 @@ def _realized_hmax(offs, width, W, H):
     return int(np.max(ymax - ymin + 1))
 
 
-@pytest.mark.parametrize("seed", range(5))
-def test_lane_bound_covers_random_geometries(seed):
-    """The port's _lane_bound upper-bounds the realized window height and
-    agrees with the reference's, for every corridor generator."""
-    rng = np.random.default_rng(seed)
-    for _ in range(40):
+def _random_corridors(rng, n=40):
+    """n random geometries over the four corridor generators: (W, H, the
+    port's corridor, the reference's corridor)."""
+    for _ in range(n):
         W = int(rng.integers(50, 4000))
         H = int(rng.integers(30, 4000))
         width = int(rng.integers(8, 1200))
@@ -311,10 +312,17 @@ def test_lane_bound_covers_random_geometries(seed):
                 a.on_ref = int(rng.integers(0, W))
                 a.on_read = int(rng.integers(0, max(1, H - 256)))
                 iv.anchors.append(a)
-            n = int(rng.integers(1, 4))
-            cs = [m.corridor_with_anchors(iv, n, W, H, 0, 256, H)
+            mult = int(rng.integers(1, 4))
+            cs = [m.corridor_with_anchors(iv, mult, W, H, 0, 256, H)
                   for m in (tal, jal)]
-        tc, jc = cs
+        yield (W, H) + tuple(cs)
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_lane_bound_covers_random_geometries(seed):
+    """The port's _lane_bound upper-bounds the realized window height and
+    agrees with the reference's, for every corridor generator."""
+    for W, H, tc, jc in _random_corridors(np.random.default_rng(seed)):
         assert (tc.mode, tc.cf, tc.ci, tc.width) == (jc.mode, jc.cf, jc.ci,
                                                       jc.width)
         offs = tal.materialize_offsets(tc, H)
@@ -327,6 +335,67 @@ def test_lane_bound_covers_random_geometries(seed):
             jc.mode, jc.cf, jc.ci, jc.width))
         assert tb == jb
         assert _realized_hmax(offs, tc.width, W, H) <= tb
+
+
+def _assert_keys_increase(pk):
+    """The precondition of the corridor_windows kernel
+    (csrc/corridor_windows.cu): over y < H the keys y + lo(y) and
+    y + hi(y), computed as the plain version computes them, increase
+    strictly in every align row."""
+    c = K._align_cols(torch.from_numpy(np.ascontiguousarray(pk)))
+    Hn = max(int(c["H"].max()), 1)
+    y = torch.arange(Hn, dtype=torch.int32)[None, :]
+    offs = K.corridor_offs(c["mode"], c["ci"], c["k"], c["d"], y)
+    W = c["W"].to(torch.int32)[:, None]
+    zero = torch.zeros_like(W)
+    lo = torch.clamp(offs, zero, W)
+    hi = torch.maximum(torch.clamp(offs + c["width"][:, None], zero, W), lo)
+    key_lo, key_hi = (y + lo).long().numpy(), (y + hi).long().numpy()
+    for b, H in enumerate(c["H"].tolist()):
+        for key in (key_lo[b, :H], key_hi[b, :H]):
+            assert (np.diff(key) >= 1).all(), (b, pk[b].tolist())
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_corridor_keys_increase_for_every_generator(seed):
+    """The rows of test_lane_bound_covers_random_geometries, packed as the
+    engine packs them (align_dispatch)."""
+    rows = []
+    for W, H, tc, _ in _random_corridors(np.random.default_rng(seed)):
+        row = np.zeros(12, np.int32)
+        row[3], row[5], row[7:10] = W, H, (tc.mode, tc.ci, tc.width)
+        row[10:12] = np.asarray(tc.cf, np.float32).view(np.int32)
+        rows.append(row)
+    pk = np.stack(rows)
+    assert set(pk[:, 7].tolist()) == {0, 1, 2, 3}
+    _assert_keys_increase(pk)
+
+
+def test_corridor_keys_increase_in_every_align_wave(monkeypatch):
+    """Every align wave that test_2 (pacbio) sends through the port on the
+    CPU, caught at kernels.corridor_windows."""
+    from conftest import DATA_DIR
+    from ngmlr_tpu_torch.cli import build_parser, config_from_args
+    from ngmlr_tpu_torch.pipeline.runner import Pipeline
+    waves = []
+    cw = K.corridor_windows
+
+    def spy(pk, TpP):
+        waves.append(pk.numpy().copy())
+        return cw(pk, TpP)
+    monkeypatch.setattr(K, "corridor_windows", spy)
+    argv = ["-r", os.path.join(DATA_DIR, "test_2/ref_chr21_20kb.fa"),
+            "-q", os.path.join(DATA_DIR, "test_2/reads_100_2200bp.fa")]
+    args = build_parser().parse_args(argv)
+    p = Pipeline(config_from_args(args, argv), args.reference,
+                 use_cache=False, device="cpu")
+    p.run(args.query, io.BytesIO())
+    assert len(waves) == p.ctx.stats["align_waves"] > 0
+    modes = set()
+    for pk in waves:
+        _assert_keys_increase(pk)
+        modes |= set(pk[:, 7].tolist())
+    assert len(modes) >= 2, modes
 
 
 def test_lane_bound_retry_reruns_conservatively():
