@@ -8,9 +8,9 @@ Phases, each printed with its wall time:
      kernels from csrc/ (one nvcc per source, started together);
   2. each kernel against its plain PyTorch version on the card, bit for bit,
      at the shapes of the main path and the wide lane classes (and the edge
-     cases of the tiled corridor_windows and convex_backtrack), with the
-     kernel's, the plain version's and (where one exists) a library call's
-     times, and the bound worked out from this run's inputs;
+     cases of the tiled corridor_windows, convex_fill and convex_backtrack),
+     with the kernel's, the plain version's and (where one exists) a
+     library call's times, and the bound worked out from this run's inputs;
   3. the goldens: the nine checks of scripts/check_goldens.sh (test_2
      pacbio and ont, test_4 and the other six) mapped through the port's
      Pipeline on the card with the default gate (the device candidate
@@ -31,8 +31,9 @@ Phases, each printed with its wall time:
      equals the host search_batch subread by subread.
 With --profile DIR, torch.profiler traces the first mapping of phases 4
 and 5 (device time by kernel and the busy share; in phase 4 also the
-launch shapes of corridor_windows and convex_backtrack and their device ms
-per launch). Then one JSON line
+launch shapes of corridor_windows, convex_fill and convex_backtrack and
+their device ms per launch, and convex_fill's wavefronts and us per
+wavefront). Then one JSON line
 listing every kernel, the card's line from nvidia-smi, and the final line
 {"ok": true, "device": {...}}.
 
@@ -89,14 +90,15 @@ OPS_SCORE_CELL = (0, 7)
 # __fdiv_rn expands, convert back; clamps, max, add: 8 ALU each)
 OPS_WINDOW_STEP = (0, 6)
 OPS_WINDOW_ROW = (20, 16)
-# convex_fill, per live cell: the lane's live test (1); diag = s2 +
-# (mat | mis) (1 add; compare + select); per gap side: run * gdecay + ge
-# (2), + s and + go (2); ext and zero tests, the min with gemin, two
-# selects, the run's conversion (5);
-# unpacking both neighbours' run and direction (4); the max of three with
-# the floor (3); the tie tests (3); the direction and run chain (11); the
-# STOP zeroing (2); the best-cell order (11); packing run and direction (2)
-OPS_FILL_CELL = (9, 49)
+# convex_fill, per live cell, as the tiled kernel computes it: diag = s2 +
+# (mat | mis) (1 add; the code test and a select, 2); the max of three with
+# the floor (3); the three tie tests and the two extension tests (5); the
+# live test (1); the keep / DEL / INS predicates (4); the run and the score
+# selects (3); the per-lane best (3); the direction (3); the value the cell
+# offers its neighbours: run * gdecay + ge, + s, + go, run + 1 (5 adds and
+# multiplies), the min with gemin, the zero test and its select (3), the
+# four up / left selects (4); packing the direction byte (1)
+OPS_FILL_CELL = (6, 32)
 # convex_backtrack, per walk step, the walk's own tests as the plain
 # version makes them: the lane and its bounds (3), the STOP test (1), the
 # validPath band (convert, 2 adds + 1 subtract, 2 converts back; 2
@@ -417,6 +419,114 @@ def bt_edge_case(name):
     return dirs, ymin, pk, bx, by, expect
 
 
+# the edge cases of the tiled convex_fill kernel (tiles of 32 wavefronts,
+# R lanes a thread, one warp or several a problem): name -> (B, Wp, Hp, L,
+# kind of problem 0); problem b takes kind FILL_KINDS[(first + b) % 9]. The
+# corridors' windows come from corridor_windows, so their ymin steps of 0
+# and 1 fall in every combination of d1 and d2, across tile boundaries and
+# thread and warp lane edges. L6144 and L12288 take the wide kernel, its
+# last two wavefronts in shared memory and in a global scratch slab; L6144's
+# windows reach past its first 1024 lanes.
+FILL_EDGES = {
+    "L128": (9, 512, 512, 128, 0),
+    "L384": (9, 1024, 1024, 384, 4),
+    "L640": (5, 1024, 1024, 640, 2),
+    "L1024": (3, 1024, 1024, 1024, 6),
+    "L1536": (2, 2048, 2048, 1536, 8),
+    "L6144": (5, 1536, 1536, 6144, 4),
+    "L12288": (1, 512, 512, 12288, 0),
+    "one-problem": (1, 2048, 2048, 256, 6),
+}
+FILL_KINDS = ("slopes", "exact", "h0", "tiny", "all-n", "x-ends", "del-run",
+              "short", "full")
+
+
+def fill_edge_case(name):
+    """(genome u8, readbuf u8, align rows int32 [B, 12], Wp, Hp, L) of one
+    convex_fill edge case. Odd rows are reverse (their query is stored
+    reverse-complemented). Kinds: slopes, an ENDPOINTS or ANCHORS corridor
+    with H / W from 0.4 to 2.5 and a random query; exact, a query equal to
+    its period-3 reference window, so equal scores tie across lanes and
+    threads; h0, H = 0; tiny, W and H below one tile; all-n, a query of N;
+    x-ends, 'x' reference codes at both ends (diff > 0, hi < ds + W);
+    del-run, a query missing 60-120 bases of its window, so a DEL run takes
+    the gap to gemin; short, a problem ending thousands of wavefronts before
+    the rest; full, a FULL corridor, its windows wider than L."""
+    B, Wp, Hp, L, first = FILL_EDGES[name]
+    rng = np.random.default_rng(300 + list(FILL_EDGES).index(name))
+    genome = rng.integers(0, 5, 300_000).astype(np.uint8)
+    readbuf = rng.integers(0, 5, 1 << 16).astype(np.uint8)
+    pk = np.zeros((B, 12), np.int32)
+    pku, pkf = pk.view(np.uint32), pk.view(np.float32)
+    f32 = np.float32
+    q_next = 0
+    top = int(0.85 * min(Wp, Hp))
+    for b in range(B):
+        kind = FILL_KINDS[(first + b) % len(FILL_KINDS)]
+        W = int(rng.integers(top // 2, top))
+        ds = int(rng.integers(0, len(genome) - Wp - 1))
+        diff, hi = 0, ds + W
+        seg = genome[ds:ds + W]
+        query = None                       # forward codes, planted below
+        mode, width = 2, int(rng.integers(L // 2, 2 * L))
+        if kind == "slopes":
+            H = int(np.clip(W * rng.uniform(0.4, 2.5), 1, Hp - 1))
+            mode = 2 + (b & 1)
+        elif kind == "exact":
+            genome[ds:ds + W] = np.resize(np.arange(3, dtype=np.uint8), W)
+            query = genome[ds:ds + W].copy()
+            mode = 1
+        elif kind == "h0":
+            H = 0
+        elif kind == "tiny":
+            W = int(rng.integers(5, 32))
+            hi = ds + W
+            H = int(rng.integers(5, 32))
+            mode = 0
+        elif kind == "all-n":
+            H = int(rng.integers(W // 2, min(Hp - 1, 2 * W)))
+            query = np.full(H, 4, np.uint8)
+        elif kind == "x-ends":
+            diff = int(rng.integers(5, 40))
+            hi = ds + W - diff - int(rng.integers(5, 40))
+            query = np.frombuffer(mutate_codes(rng, genome[ds:hi]), np.uint8)
+        elif kind == "del-run":
+            cut = int(rng.integers(60, 120))
+            query = np.concatenate([seg[:W // 2], seg[W // 2 + cut:]])
+            mode, width = 1, 2 * cut + 40
+        elif kind == "short":
+            W = int(rng.integers(40, 200))
+            hi = ds + W
+            query = np.frombuffer(mutate_codes(rng, genome[ds:hi]), np.uint8)
+            mode, width = 1, 60
+        else:                              # full
+            query = np.frombuffer(mutate_codes(rng, seg), np.uint8)
+            mode = 0
+        if query is not None:
+            query = query[:Hp - 1]
+            H = len(query)
+            readbuf[q_next:q_next + H] = (
+                np.where(query < 4, query ^ 1, query)[::-1] if b & 1 else query)
+            qs = q_next
+            q_next += H
+        else:
+            qs = int(rng.integers(q_next, len(readbuf) - Hp))
+        if mode == 0:
+            w = W + 1
+            ci = int(f32(w) * f32(-0.2))
+            width = w + int(f32(w) * f32(0.2))
+            cf = (1.0, 0.0)
+        elif mode == 1:
+            ci, cf = width // 2, (1.0, 0.0)
+        else:
+            ci = 0
+            cf = (float(f32(max(H, 1)) / f32(W)), float(f32(width) / f32(2.0)))
+        pku[b, 0], pku[b, 1] = ds, hi
+        pk[b, 2:10] = (diff, W, qs, H, b & 1, mode, ci, width)
+        pkf[b, 10:12] = cf
+    return genome, readbuf, pk, Wp, Hp, L
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -614,10 +724,37 @@ def phase_kernels(rng, dev="cuda"):
             "walk ends (state, x, y) %s" % ((name,) + tuple(args[0].shape)
                                             + (e, ends)))
         del args, got, want
+    for name in FILL_EDGES:
+        e, rows = fill_edge_err(name, dev)
+        fill_err = max(fill_err, e)
+        log("convex_fill edge %s B=%d Wp=%d Hp=%d L=%d: max_abs_err=%g over "
+            "%d live wavefront rows" % ((name,) + FILL_EDGES[name][:4]
+                                        + (e, rows)))
     rec["convex_fill"]["max_abs_err"] = fill_err
     rec["convex_backtrack"]["max_abs_err"] = bt_err
     rec["expand_votes"] = phase_expand_votes(rng, dev)
     return rec
+
+
+def fill_edge_err(name, dev):
+    """(max_abs_err, live wavefront rows) of convex_fill against its plain
+    version on one FILL_EDGES case, over best, by, bx and every direction
+    byte of a live wavefront (ymin < H)."""
+    import torch
+    from ngmlr_tpu_torch.ops import kernels as K
+    *bufs, pk_np, Wp, Hp, L = fill_edge_case(name)
+    genome, readbuf, pk = (torch.from_numpy(a).to(dev)
+                           for a in (*bufs, pk_np))
+    params = torch.tensor([2.0, -5.0, -5.0, -5.0, -1.0, 0.15],
+                          dtype=torch.float32, device=dev)
+    ymin, ymax, _ = K.corridor_windows(pk, Wp + Hp)
+    got = K.convex_fill(genome, readbuf, pk, params, ymin, ymax, L)
+    want = K.convex_fill_plain(genome, readbuf, pk, params, ymin, ymax, L)
+    live_t = ymin < pk[:, 5:6]
+    live = live_t[:, :, None].expand(-1, -1, L)
+    e = max_abs_err([(got[1], want[1]), (got[2], want[2]), (got[3], want[3]),
+                     (got[0][live], want[0][live])])
+    return e, int(live_t.sum())
 
 
 def slot_tables(rng, B, L, n_positions, ragged=False):
@@ -911,19 +1048,24 @@ def write_fasta(path, records):
 
 
 # the wrappers whose launch shapes and per-launch device times phase 4 logs
-# under --profile, with the CUDA kernels each launch runs
-PER_LAUNCH = {"corridor_windows": ("hmax_init_kernel",
-                                   "corridor_windows_kernel"),
-              "convex_backtrack": ("convex_backtrack_kernel",)}
+# under --profile: for each, the CUDA kernels one launch runs (each entry a
+# kernel, or the alternatives of which the launch runs one)
+PER_LAUNCH = {"corridor_windows": (("hmax_init_kernel",),
+                                   ("corridor_windows_kernel",)),
+              "convex_fill": (("fill_tiled", "fill_wide"),),
+              "convex_backtrack": (("convex_backtrack_kernel",),)}
 
 
 @contextlib.contextmanager
 def recorded_shapes():
     """Stand in for the PER_LAUNCH wrappers of ngmlr_tpu_torch.ops.kernels,
-    recording each call's shape ((B, TpP) and (B, TpP, L)) before calling
-    the wrapper. One lock around record and launch keeps the record in
-    launch order: the pipeline launches from several threads, all on the
-    default stream. Yields {wrapper: [shape, ...]}."""
+    recording each call's shape ((B, TpP) or (B, TpP, L)) before calling
+    the wrapper, and for convex_fill its windows and align rows, from which
+    per_launch_times counts the wavefronts the launch runs once the traced
+    run is over (so the trace holds no kernel of the record's). One lock
+    around record and launch keeps the record in launch order: the pipeline
+    launches from several threads, all on the default stream. Yields
+    {wrapper: [(shape, (ymin, pk) or None), ...]}."""
     from ngmlr_tpu_torch.ops import kernels as K
     shapes = {n: [] for n in PER_LAUNCH}
     orig = {n: getattr(K, n) for n in PER_LAUNCH}
@@ -931,14 +1073,21 @@ def recorded_shapes():
 
     def cw(pk, TpP):
         with lock:
-            shapes["corridor_windows"].append((pk.shape[0], TpP))
+            shapes["corridor_windows"].append(((pk.shape[0], TpP), None))
             return orig["corridor_windows"](pk, TpP)
+
+    def cf(genome, readbuf, pk, params, ymin, ymax, L):
+        with lock:
+            shapes["convex_fill"].append((tuple(ymin.shape) + (L,),
+                                          (ymin, pk)))
+            return orig["convex_fill"](genome, readbuf, pk, params, ymin,
+                                       ymax, L)
 
     def bt(dirs, ymin, pk, bx, by):
         with lock:
-            shapes["convex_backtrack"].append(tuple(dirs.shape))
+            shapes["convex_backtrack"].append((tuple(dirs.shape), None))
             return orig["convex_backtrack"](dirs, ymin, pk, bx, by)
-    K.corridor_windows, K.convex_backtrack = cw, bt
+    K.corridor_windows, K.convex_fill, K.convex_backtrack = cw, cf, bt
     try:
         yield shapes
     finally:
@@ -948,8 +1097,10 @@ def recorded_shapes():
 
 def per_launch_times(events, shapes):
     """Match each recorded launch to its kernels' device times in the
-    trace (events in start order) and sum them by launch shape. Returns
-    {wrapper: {"shape": {launches, device_ms, ms_per_launch}}}, or a note
+    trace (events in start order) and sum them by launch shape; a launch
+    recorded with its (ymin, pk) adds its longest problem's count of ymin <
+    H to its shape's wavefronts. Returns {wrapper: {"shape": {launches,
+    device_ms, ms_per_launch[, wavefronts, us_per_wavefront]}}}, or a note
     where the trace and the record disagree in count."""
     import torch
     dev = sorted((e.time_range.start, e.name, e.time_range.elapsed_us() / 1e3)
@@ -957,20 +1108,27 @@ def per_launch_times(events, shapes):
                  if e.device_type == torch.autograd.DeviceType.CUDA)
     out = {}
     for w, kernels in PER_LAUNCH.items():
-        per = [[ms for _, name, ms in dev if k in name] for k in kernels]
+        per = [[ms for _, name, ms in dev if any(k in name for k in alts)]
+               for alts in kernels]
         n = len(shapes[w])
         if any(len(p) != n for p in per):
             out[w] = {"note": "%d launches recorded, kernels traced %s"
                       % (n, [len(p) for p in per])}
             continue
         groups = {}
-        for i, shape in enumerate(shapes[w]):
+        for i, (shape, windows) in enumerate(shapes[w]):
             g = groups.setdefault("x".join(map(str, shape)),
                                   {"launches": 0, "device_ms": 0.0})
             g["launches"] += 1
             g["device_ms"] += sum(p[i] for p in per)
+            if windows is not None:
+                ymin, pk = windows
+                g["wavefronts"] = g.get("wavefronts", 0) + int(
+                    (ymin < pk[:, 5:6]).sum(dim=1).max())
         for g in groups.values():
             g["ms_per_launch"] = g["device_ms"] / g["launches"]
+            if g.get("wavefronts"):
+                g["us_per_wavefront"] = g["device_ms"] * 1e3 / g["wavefronts"]
         out[w] = groups
     return out
 

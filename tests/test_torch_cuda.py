@@ -20,8 +20,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from ngmlr_tpu_torch.ops import device_engine as tde  # noqa: E402
 from ngmlr_tpu_torch.ops import kernels as K  # noqa: E402
 from ngmlr_tpu_torch.ops.device_engine import _convex_kernel  # noqa: E402
-from chip_smoke import (BT_EDGES, CW_EDGES, bt_edge_case,  # noqa: E402
-                        cw_edge_case)
+from chip_smoke import (BT_EDGES, CW_EDGES, FILL_EDGES,  # noqa: E402
+                        bt_edge_case, cw_edge_case, fill_edge_err)
 
 pytestmark = pytest.mark.cuda
 
@@ -140,6 +140,22 @@ def test_convex_backtrack_edges_match_plain(dev, case):
     for b, (state, sx, sy) in expect.items():
         assert (int(want[3][b]), int(want[1][b]), int(want[2][b])) \
             == (state, sx, sy), b
+
+
+@pytest.mark.parametrize("case", list(FILL_EDGES))
+def test_convex_fill_edges_match_plain(dev, case):
+    """The tiled fill's edges (chip_smoke.fill_edge_case), bit for bit:
+    ymin steps of 0 and 1 across tiles and lane edges, windows emptying
+    before TpP and problems ending far apart, H = 0, W and H below one
+    tile, ties across lanes, an all-N query, 'x' at both reference ends,
+    reverse rows, a DEL run reaching gemin, L = 128 to 1536, and 6144 and
+    12288 (the wide kernel's shared-memory and global-scratch rings), B = 1
+    and odd B."""
+    n0 = K.launches["convex_fill"]
+    err, rows = fill_edge_err(case, dev)
+    torch.cuda.synchronize()
+    assert K.launches["convex_fill"] == n0 + 1
+    assert err == 0 and rows > 0
 
 
 @pytest.mark.parametrize("Wp,Hp,L", [(1024, 1024, 128), (2048, 1024, 1536),

@@ -22,6 +22,7 @@ from ngmlr_tpu_torch.align import aligner as tal
 from ngmlr_tpu_torch.ops import device_engine as tde
 from ngmlr_tpu_torch.ops import kernels as K
 
+from chip_smoke import FILL_EDGES, fill_edge_case
 from test_corridor_windows import hist_windows
 
 torch.set_num_threads(1)
@@ -244,6 +245,36 @@ def test_convex_wide_lanes_match_jax_scan():
     np.testing.assert_array_equal(tp, jp)
     assert ts[0, 6] > 1024                # the window really is wide
     assert ts[0, 5] == 1
+
+
+@pytest.mark.parametrize("case", list(FILL_EDGES))
+def test_convex_fill_edges_match_jax_scan(case):
+    """chip_smoke's convex_fill edge cases, which the card holds bit for bit
+    against the plain fill, through the port's plain chain and the JAX scan
+    chain: so the card's cases are known right, not only self-consistent."""
+    genome, readbuf, pk, Wp, Hp, L = fill_edge_case(case)
+    (tp, ts), (jp, js) = _convex_both(genome, readbuf, pk, Wp, Hp, L)
+    np.testing.assert_array_equal(ts, js)
+    np.testing.assert_array_equal(tp, jp)
+
+
+def test_convex_fill_edge_matches_pallas_interpret():
+    """Eight rows of the L128 edge case (every row kind but one) through
+    the Pallas chain in TPU interpret mode, as scripts/check_kernels.py runs
+    it without a TPU, against the port's plain chain."""
+    from jax.experimental.pallas import tpu as pltpu
+    genome, readbuf, pk, Wp, Hp, L = fill_edge_case("L128")
+    pk = np.ascontiguousarray(pk[:8])
+    with pltpu.force_tpu_interpret_mode():
+        jp, js = jde._convex_kernel(
+            jnp.asarray(genome), jnp.asarray(readbuf), jnp.asarray(pk),
+            jnp.asarray(PARAMS), Wp=Wp, Hp=Hp, L=L, impl="pallas", K=128, BT=8)
+    tp, ts = tde._convex_kernel(torch.from_numpy(genome),
+                                torch.from_numpy(readbuf),
+                                torch.from_numpy(pk), torch.from_numpy(PARAMS),
+                                Wp=Wp, Hp=Hp, L=L)
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
 
 
 def test_align_wave_matches_jax_context():
