@@ -28,7 +28,16 @@ Phases, each printed with its wall time:
      path and v2's reruns on the card; each read file maps with
      the device search and again with the host search on the same
      Pipeline, byte-identical, and each file's first batch of candidates
-     equals the host search_batch subread by subread.
+     equals the host search_batch subread by subread;
+  6. scale-out and the debug surface: the nine --stdout dumps of
+     tests/golden/dumps through the port's CLI, byte for byte; test_2 in
+     serial mode (NGMLR_TPU_SYNC=1) equal to the pipelined run at 4-read
+     batches; test_6 --shard 0/2 and 1/2 merged by scripts/merge_sams.py
+     equal to the full run; two CLI processes under one coordinator
+     (torch.distributed, gloo), merged, equal to the single run of test_2;
+     then phase 4's files through a mesh of two shards sharing cuda:0 (the
+     CLI's -t 2 over two cards), its SAM equal to phase 4's byte for byte,
+     and again over every visible card where there is more than one.
 With --profile DIR, torch.profiler traces the first mapping of phases 4
 and 5 (device time by kernel and the busy share; in phase 4 also the
 launch shapes of corridor_windows, convex_fill and convex_backtrack and
@@ -37,13 +46,17 @@ wavefront). Then one JSON line
 listing every kernel, the card's line from nvidia-smi, and the final line
 {"ok": true, "device": {...}}.
 
-Every mapping run (each golden, each mapping of phases 4 and 5) sets the
-launch counters to 0 just before it drives the pipeline and reads them
-just after; each run's counts must equal the waves its own run recorded
-(one score_fill per score wave, one launch of each convex kernel per align
-wave, one expand_votes per row-local device-search launch, none with the
-host search), and the first mappings of phases 4 and 5 must launch all
-five. The kernels line carries the counts of phase 4's first mapping, the
+Every mapping run (each golden, each mapping of phases 4 to 6; a process
+of phase 6's two-process run reports its own) sets the launch counters to
+0 just before it drives the pipeline and reads them just after; each run's
+counts must equal the launches its own engine recorded (one score_fill per
+shard of each score wave, one launch of each convex kernel per shard of
+each align wave, a shard per wave off a mesh, one expand_votes per
+row-local device-search launch, none with the host search), and the first
+mappings of phases 4 and 5 must launch all five. On the mesh,
+mesh_problems_psum must equal the real problems handed to the waves,
+counted on the host before the split.
+The kernels line carries the counts of phase 4's first mapping, the
 main path; the comparisons of phase 2 count nowhere. Any failed phase
 exits non-zero without the final line. Needs one CUDA card, nvcc and the
 repository checkout (it imports ngmlr_tpu_torch from beside this file).
@@ -51,6 +64,7 @@ repository checkout (it imports ngmlr_tpu_torch from beside this file).
 
 import argparse
 import contextlib
+import gzip
 import io
 import json
 import os
@@ -870,13 +884,15 @@ def _records(sam):
     return [l for l in sam.split(b"\n") if not l.startswith(b"@PG")]
 
 
-def _map(argv, device="cuda", use_cache=True):
+def _map(argv, device="cuda", use_cache=True, batch_reads=None):
     """Map through the port's Pipeline. Returns (pipeline, SAM bytes, setup
     s, map s, the kernel launches of this run alone)."""
     from ngmlr_tpu_torch.cli import build_parser, config_from_args
     from ngmlr_tpu_torch.pipeline.runner import Pipeline
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args, argv)
+    if batch_reads is not None:
+        cfg.batch_reads = batch_reads
     t0 = time.perf_counter()
     p = Pipeline(cfg, args.reference, use_cache=use_cache, device=device)
     t_setup = time.perf_counter() - t0
@@ -884,17 +900,25 @@ def _map(argv, device="cuda", use_cache=True):
     return p, out, t_setup, t_run, launches
 
 
-def check_launches(tag, launches, stats):
-    """A run's launches must be the waves its engine recorded: one
-    score_fill per score wave, one of each convex kernel per align wave,
-    one expand_votes per row-local device-search launch (none in a run
-    with the host search)."""
-    want = {"score_fill": stats["score_waves"]}
+def check_launches(tag, launches, stats, mesh=False):
+    """A run's launches must be the launches its engine recorded: one
+    score_fill per shard of each score wave, one of each convex kernel per
+    shard of each align wave, one expand_votes per row-local device-search
+    launch (none in a run with the host search). Off a mesh a wave is one
+    launch."""
+    want = {"score_fill": stats["score_launches"]}
     for k in ("corridor_windows", "convex_fill", "convex_backtrack"):
-        want[k] = stats["align_waves"]
+        want[k] = stats["align_launches"]
     want["expand_votes"] = stats["search_v2_launches"]
     check(launches == want, "%s: launches %s, but the engine recorded %s"
           % (tag, launches, want))
+    if not mesh:
+        check(stats["score_launches"] == stats["score_waves"]
+              and stats["align_launches"] == stats["align_waves"],
+              "%s: one device launched %d score and %d align shards for "
+              "%d and %d waves" % (tag, stats["score_launches"],
+                                   stats["align_launches"],
+                                   stats["score_waves"], stats["align_waves"]))
 
 
 def _per_read(sam, mask_qual):
@@ -1303,9 +1327,9 @@ def mapping_summary(tag, genome_mbp, p, out, origin, t_setup, t_run,
     return summary
 
 
-def _pipeline(ref_p, reads_p):
-    """A Pipeline on the card with the default search gate (the variable
-    unset), timed. Returns (pipeline, setup s)."""
+def _pipeline(ref_p, reads_p, device="cuda"):
+    """A Pipeline on the card (or a mesh of cards) with the default search
+    gate (the variable unset), timed. Returns (pipeline, setup s)."""
     from ngmlr_tpu_torch.cli import build_parser, config_from_args
     from ngmlr_tpu_torch.pipeline.runner import Pipeline
     argv = ["-r", ref_p, "-q", reads_p]
@@ -1314,7 +1338,7 @@ def _pipeline(ref_p, reads_p):
     try:
         t0 = time.perf_counter()
         p = Pipeline(config_from_args(args, argv), ref_p, use_cache=False,
-                     device="cuda")
+                     device=device)
         return p, time.perf_counter() - t0
     finally:
         _env("NGMLR_TPU_DEVICE_SEARCH", old)
@@ -1344,6 +1368,7 @@ def _run_counted(tag, p, reads_p):
     delta = {k: v - before.get(k, 0) for k, v in p.ctx.stats.items()
              if isinstance(v, (int, float)) and v != before.get(k, 0)}
     check_launches(tag, launches, {"score_waves": 0, "align_waves": 0,
+                                   "score_launches": 0, "align_launches": 0,
                                    "search_v2_launches": 0, **delta})
     fb = [k for k in delta if k.startswith("search_fallback_")]
     check(not fb, "%s: the device search handed batches back: %s"
@@ -1386,7 +1411,8 @@ def other_search_run(tag, p, reads_p, out):
 
 def phase_mapping(genome_mbp, n_reads, read_len, workdir, profile_dir=None):
     """Phase 4: one chromosome with the default gate (the device search),
-    then again with the host search on the same Pipeline."""
+    then again with the host search on the same Pipeline. Returns (its
+    numbers, (ref path, reads path, the device-search SAM))."""
     import torch
     ref_p, reads_p, _, origin = make_dataset(
         np.random.default_rng(1234), genome_mbp, n_reads, read_len, workdir)
@@ -1405,7 +1431,7 @@ def phase_mapping(genome_mbp, n_reads, read_len, workdir, profile_dir=None):
         check(launches[name] > 0,
               "kernel %s was not launched on the main path" % name)
     summary["host_search"] = other_search_run("mapping", p, reads_p, out)
-    return summary
+    return summary, (ref_p, reads_p, out)
 
 
 def first_batch_views(p, reads_p):
@@ -1418,7 +1444,7 @@ def first_batch_views(p, reads_p):
     reads = [r for r in batch if not r.empty]
     buf = np.concatenate([_CHAR2CODE[np.frombuffer(r.seq, dtype=np.uint8)]
                           for r in reads])
-    readbuf = p.ctx.upload_reads(buf)
+    readbuf = p.ctx.upload_reads(buf).primary
     starts, lens, seqs = [], [], []
     off = 0
     for r in reads:
@@ -1513,6 +1539,284 @@ def phase_large_genome(genome_mbp, n_reads, read_len, workdir,
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 6: scale-out and the debug surface
+# ---------------------------------------------------------------------------
+
+# the reference binary's --stdout dumps in tests/golden/dumps
+DUMP_RUNS = ([("test_2", m) for m in (1, 3, 5, 7)]
+             + [("test_4", m) for m in (2, 3, 4, 5, 6)])
+DUMP_DATA = {
+    "test_2": ("test_2/ref_chr21_20kb.fa", "test_2/reads_100_2200bp.fa"),
+    "test_4": ("test_4/reference.fasta.gz", "test_4/read.fa.gz")}
+SCALE_KEYS = ("score_waves", "score_launches", "align_waves",
+              "align_launches", "search_v2_launches")
+# one CLI process of a multi-process run: cli.main, then the process's
+# kernel launches and the engine's counts on stderr
+CLI_COUNTED = """
+import json, sys
+sys.path.insert(0, %r)
+from ngmlr_tpu_torch import cli
+from ngmlr_tpu_torch.ops import device_engine, kernels as K
+rc = cli.main(sys.argv[1:])
+st = device_engine.current().stats
+sys.stderr.write("SMOKE_COUNTS %%s\\n" %% json.dumps(
+    {"launches": K.launches, "stats": {k: st[k] for k in %r}}))
+sys.exit(rc)
+""" % (HERE, SCALE_KEYS)
+
+
+def _data_argv(name):
+    ref, qry = (os.path.join(DATA, p) for p in DUMP_DATA[name])
+    return ["-r", ref, "-q", qry, "-x", "pacbio", "--no-progress"]
+
+
+def cli_run(tag, argv, dev):
+    """The port's CLI (cli.main) in this process on dev, its standard
+    output captured and its launch counters set to 0 just before and
+    checked just after. Returns (stdout bytes, wall s)."""
+    import torch
+    from ngmlr_tpu_torch import cli
+    from ngmlr_tpu_torch.ops import device_engine
+    from ngmlr_tpu_torch.ops import kernels as K
+    buf = io.BytesIO()
+    out = io.TextIOWrapper(buf, encoding="utf-8", newline="\n",
+                           write_through=True)
+    old = [_env("NGMLR_TPU_STRICT", "1"), _env("NGMLR_TORCH_DEVICE", dev)]
+    K.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        _env("NGMLR_TPU_STRICT", old[0])
+        _env("NGMLR_TORCH_DEVICE", old[1])
+    wall = time.perf_counter() - t0
+    out.flush()
+    check(rc == 0, "%s: the CLI returned %s" % (tag, rc))
+    check_launches(tag, dict(K.launches), device_engine.current().stats)
+    return buf.getvalue(), wall
+
+
+@contextlib.contextmanager
+def counted_problems(ctx):
+    """Counts on the host, before the engine splits them over the shards,
+    the real problems (qlen > 0) of the score and align rows handed to
+    ctx's wave dispatch (the lane-bound retry included), summed into the
+    yielded list after the block."""
+    sd, ad = ctx.score_dispatch_np, ctx.align_dispatch_pk
+    counts = []
+
+    def score_dispatch_np(pk, *a, **kw):
+        counts.append(int(np.count_nonzero(np.asarray(pk)[:, 5] > 0)))
+        return sd(pk, *a, **kw)
+
+    def align_dispatch_pk(pk_all, *a, **kw):
+        counts.append(int(np.count_nonzero(np.asarray(pk_all)[:, 5] > 0)))
+        return ad(pk_all, *a, **kw)
+    ctx.score_dispatch_np, ctx.align_dispatch_pk = (score_dispatch_np,
+                                                    align_dispatch_pk)
+    total = []
+    try:
+        yield total
+    finally:
+        del ctx.score_dispatch_np, ctx.align_dispatch_pk
+        total.append(sum(counts))
+
+
+def _merge_sams(out, shards):
+    r = subprocess.run([sys.executable,
+                        os.path.join(HERE, "scripts", "merge_sams.py"), out]
+                       + shards, capture_output=True, timeout=120)
+    check(r.returncode == 0, "merge_sams.py failed: %s" % r.stderr[-500:])
+    with open(out, "rb") as f:
+        return f.read()
+
+
+def _golden(name):
+    with open(os.path.join(GOLDEN, name), "rb") as f:
+        return f.read()
+
+
+def start_two_processes(workdir, dev):
+    """Two CLI processes on the card under one coordinator (gloo on a free
+    localhost port), each mapping its round-robin half of test_2 by
+    NGMLR_TPU_PROC_ID. Returns [(process, SAM path)]."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for pid in range(2):
+        sam = os.path.join(workdir, "proc%d.sam" % pid)
+        env = dict(os.environ, NGMLR_TORCH_DEVICE=dev,
+                   NGMLR_TPU_STRICT="1",
+                   NGMLR_TPU_COORDINATOR="127.0.0.1:%d" % port,
+                   NGMLR_TPU_NUM_PROCS="2", NGMLR_TPU_PROC_ID=str(pid))
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", CLI_COUNTED] + _data_argv("test_2")
+            + ["-o", sam], cwd=HERE, env=env, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE), sam))
+    return procs
+
+
+def finish_two_processes(procs, single, workdir):
+    """Wait for the two processes (the caller kills them on any failure),
+    check each one's launches against its engine's counts, and merge their
+    SAMs: the merge must equal the single run."""
+    errs = [p.communicate(timeout=300)[1].decode(errors="replace")
+            for p, _ in procs]
+    for pid, ((p, _), err) in enumerate(zip(procs, errs)):
+        check(p.returncode == 0, "process %d of 2 failed: %s"
+              % (pid, err[-1500:]))
+        line = [l for l in err.splitlines() if l.startswith("SMOKE_COUNTS ")]
+        check(line, "process %d of 2 reported no counts" % pid)
+        counts = json.loads(line[-1][len("SMOKE_COUNTS "):])
+        check_launches("process %d of 2" % pid, counts["launches"],
+                       counts["stats"])
+    merged = _merge_sams(os.path.join(workdir, "procs_merged.sam"),
+                         [sam for _, sam in procs])
+    check(_records(merged) == _records(single),
+          "two processes, merged, differ from the single run")
+    return len(_records(merged))
+
+
+def mesh_run(tag, devices, ref_p, reads_p, want):
+    """Phase 4's files through a Pipeline on the mesh `devices` (native
+    engine, device search on the primary card): the SAM must equal phase
+    4's, every kernel launch must be one the engine recorded, at least one
+    wave must have split over the shards, and mesh_problems_psum must equal
+    the real problems handed to the waves, counted before the split."""
+    p, t_setup = _pipeline(ref_p, reads_p, device=devices)
+    check(p.ctx.devices == devices and p.dev_search is not None,
+          "%s: the mesh or the device search is missing" % tag)
+    with counted_problems(p.ctx) as real:
+        out, t_run, launches = _run_on(p, reads_p)
+    st = p.ctx.stats
+    rec = dict(devices=[str(d) for d in devices], reads=p.stats["reads"],
+               setup_s=t_setup, map_s=t_run,
+               reads_per_s=p.stats["reads"] / t_run,
+               mesh_problems_psum=st.get("mesh_problems_psum", 0),
+               real_problems=real[0], launches=launches,
+               sam_identical=out == want,
+               **{k: st[k] for k in SCALE_KEYS})
+    log("%s: %s" % (tag, json.dumps(rec)))
+    check(rec["sam_identical"], "%s: the SAM differs from phase 4's" % tag)
+    check_launches(tag, launches, st, mesh=True)
+    check(st["score_launches"] > st["score_waves"]
+          and st["align_launches"] > st["align_waves"],
+          "%s: no wave split over the shards" % tag)
+    check(rec["mesh_problems_psum"] == real[0],
+          "%s: mesh_problems_psum %d, but the waves were handed %d real "
+          "problems" % (tag, rec["mesh_problems_psum"], real[0]))
+    return rec
+
+
+def phase_scaleout(main_path, workdir, dev="cuda"):
+    """Phase 6: the --stdout dumps, serial mode, --shard with the merge and
+    a two-process run through the CLI on the card, then phase 4's mapping
+    on a mesh of two shards sharing cuda:0 (and over every card where
+    there are more)."""
+    import torch
+    os.makedirs(workdir, exist_ok=True)
+    rec = {}
+    procs = start_two_processes(workdir, dev)
+    try:
+        runs = {}
+        for name, mode in DUMP_RUNS:
+            tag = "%s --stdout %d" % (name, mode)
+            got, wall = cli_run(tag, _data_argv(name)
+                                + ["--stdout", str(mode), "-o", os.devnull],
+                                dev)
+            with gzip.open(os.path.join(GOLDEN, "dumps", "%s_stdout%d.txt.gz"
+                                        % (name, mode)), "rb") as f:
+                same = got == f.read()
+            runs[tag] = {"wall_s": wall, "bytes": len(got), "same": same}
+            log("%s: %s (%d bytes, %.2f s)" % (
+                tag, "BYTE-IDENTICAL" if same else "DIFFERS", len(got), wall))
+        rec["dumps"] = runs
+        check(all(r["same"] for r in runs.values()),
+              "dumps differ: %s" % [t for t, r in runs.items()
+                                    if not r["same"]])
+
+        serial = {}
+        for sync in ("1", None):
+            old = [_env("NGMLR_TPU_SYNC", sync), _env("NGMLR_TPU_STRICT", "1")]
+            try:
+                p, out, _, t_run, launches = _map(_data_argv("test_2"), dev,
+                                                  batch_reads=4)
+            finally:
+                _env("NGMLR_TPU_SYNC", old[0])
+                _env("NGMLR_TPU_STRICT", old[1])
+            tag = "test_2 %s, 4-read batches" % ("serial" if sync
+                                                 else "pipelined")
+            check_launches(tag, launches, p.ctx.stats)
+            serial[tag] = (out, t_run)
+            log("%s: map %.2f s, launches %s" % (tag, t_run,
+                                                  json.dumps(launches)))
+        (s_out, s_t), (p_out, p_t) = serial.values()
+        rec["serial"] = {"serial_map_s": s_t, "pipelined_map_s": p_t,
+                         "same": _records(s_out) == _records(p_out)}
+        check(rec["serial"]["same"], "serial mode differs from pipelined")
+
+        t6 = ["-r", os.path.join(DATA, "test_6/reference.fasta.gz"),
+              "-q", os.path.join(DATA, "test_6/read.fa.gz"), "-x", "pacbio",
+              "--no-progress"]
+        shard = {}
+        for part in ("full", "0/2", "1/2"):
+            sam = os.path.join(workdir,
+                               "test6_%s.sam" % part.replace("/", "of"))
+            extra = [] if part == "full" else ["--shard", part]
+            _, shard[part] = cli_run("test_6 " + part, t6 + extra
+                                     + ["-o", sam], dev)
+            shard[part + " sam"] = sam
+        merged = _merge_sams(os.path.join(workdir, "test6_merged.sam"),
+                             [shard["0/2 sam"], shard["1/2 sam"]])
+        with open(shard["full sam"], "rb") as f:
+            full = f.read()
+        rec["shards"] = {"wall_s": {k: v for k, v in shard.items()
+                                    if not k.endswith(" sam")},
+                         "same": _records(merged) == _records(full),
+                         "golden": _records(full) == _records(
+                             _golden("test_6.sam"))}
+        log("test_6 --shard 0/2 + 1/2, merged: %s" % json.dumps(rec["shards"]))
+        check(rec["shards"]["same"] and rec["shards"]["golden"],
+              "test_6: the merged shards differ from the full run or the "
+              "golden")
+
+        single_p = os.path.join(workdir, "test2_single.sam")
+        _, single_s = cli_run("test_2 single", _data_argv("test_2")
+                              + ["-o", single_p], dev)
+        with open(single_p, "rb") as f:
+            single = f.read()
+        check(_records(single) == _records(_golden("test_2.sam")),
+              "test_2 through the CLI differs from the golden")
+        n = finish_two_processes(procs, single, workdir)
+        rec["two_processes"] = {"records": n, "single_wall_s": single_s}
+        log("two processes on the card, merged: equal to the single run "
+            "(%d records)" % n)
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    ref_p, reads_p, want = main_path
+    mesh = [torch.device("cuda", 0) if dev == "cuda"
+            else torch.device(dev)] * 2
+    rec["mesh"] = mesh_run("mesh of 2 shards on cuda:0", mesh, ref_p,
+                           reads_p, want)
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        cards = [torch.device("cuda", i) for i in range(n_cards)]
+        rec["every_card"] = mesh_run("mesh over %d cards" % n_cards, cards,
+                                     ref_p, reads_p, want)
+    else:
+        log("one visible card: the mesh over every card is not run")
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -1549,7 +1853,7 @@ def main():
         record["goldens"] = phase_goldens()
         log("phase 3 (goldens): %.2f s" % (time.perf_counter() - t0))
         t0 = time.perf_counter()
-        record["mapping"] = phase_mapping(
+        record["mapping"], main_path = phase_mapping(
             GENOME_MBP, N_READS, READ_LEN,
             os.path.join(HERE, "ngmlr_tpu_torch", "_build", "smoke"),
             args.profile)
@@ -1560,6 +1864,12 @@ def main():
             os.path.join(HERE, "ngmlr_tpu_torch", "_build", "smoke_large"),
             args.profile and os.path.join(args.profile, "large_genome"))
         log("phase 5 (large genome): %.2f s" % (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        record["scaleout"] = phase_scaleout(
+            main_path, os.path.join(HERE, "ngmlr_tpu_torch", "_build",
+                                    "smoke_scaleout"))
+        log("phase 6 (scale-out and dumps): %.2f s"
+            % (time.perf_counter() - t0))
         # the launches of the one-chromosome run, the main path
         launches = record["mapping"]["launches"]
     except PhaseError as e:

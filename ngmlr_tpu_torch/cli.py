@@ -165,11 +165,24 @@ def main(argv=None):
     if args.subread_aligner not in (0, 1, 2, 3):
         sys.stderr.write(f"Invalid subread aligner: {args.subread_aligner}\n")
         return 1
-    if os.environ.get("NGMLR_TPU_COORDINATOR"):
-        raise NotImplementedError(
-            "multi-host runs (NGMLR_TPU_COORDINATOR) are not ported yet "
-            "(ROADMAP open item 1.4)")
-    shard, n_shards = 0, 1
+    # multi-process bootstrap (no-op unless NGMLR_TPU_COORDINATOR, or
+    # torchrun's MASTER_ADDR/MASTER_PORT, is set):
+    # each process maps its round-robin read shard; merge the per-process
+    # SAMs with scripts/merge_sams.py (deterministic reference order)
+    from .parallel.mesh import (init_distributed, local_device,
+                                shutdown_distributed)
+    shard, n_shards = init_distributed()
+    try:
+        # under torchrun each process of a node maps on its own cards
+        device = local_device(device, int(os.environ.get(
+            "NGMLR_TPU_DEVICES") or args.threads))
+        return _run(args, argv, device, shard, n_shards)
+    finally:
+        shutdown_distributed()
+
+
+def _run(args, argv, device, shard, n_shards):
+    from .log import Log
     if args.shard:
         try:
             fields = args.shard.split("/")

@@ -19,9 +19,12 @@ problem and every output is a few bytes per problem.
 The kernels (ops/kernels.py, csrc/*.cu) reproduce the JAX package's
 ngmlr_tpu.ops.device_engine bit for bit, which in turn reproduces
 ConvexAlignFast::fwdFillMatrix (ngmlr src/ConvexAlignFast.cpp:606-774)
-exactly. This module is the single-device slice of that engine: the mesh
-(-t N over several cards) and the multi-unit genome planes are not ported
-yet (ROADMAP items 4 and 6) and raise.
+exactly. With -t N every score and align wave runs over a mesh of devices
+(parallel/mesh.py): the genome and each read buffer are replicated on every
+device, each wave's padded blocks split into contiguous per-shard slices,
+and the results gathered back in problem order; each kernel computes one
+problem per block, so the bytes do not depend on the mesh. The multi-unit
+genome planes are not ported yet (ROADMAP item 6) and raise.
 """
 
 from dataclasses import dataclass
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from . import kernels
+from ..parallel.mesh import make_mesh
 from .types import (STOP, DIAG, INS, DEL, XCODE, NCODE,  # noqa: F401
                     CORRIDOR_FULL, CORRIDOR_LINEAR, CORRIDOR_ENDPOINTS,
                     CORRIDOR_ANCHORS)
@@ -73,6 +77,43 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError("unsupported device %r" % str(dev))
     return dev
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    """cuda -> cuda:<current card>: a mesh's devices compare equal to the
+    devices of the tensors on them."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _shard_rows(n: int, n_shards: int, pad) -> Tuple[int, List[slice]]:
+    """Split a block of n problems over n_shards in contiguous slices, in
+    order, as the reference's shard_map splits the batch axis: every shard
+    holds pad(ceil(n / n_shards)) rows (pad rounds a count up to the
+    block's tile). Returns (rows per shard, the slices of the shards that
+    hold a problem); a shard past the problems gets no slice and no
+    launch."""
+    per = pad(max((n + n_shards - 1) // n_shards, 1))
+    return per, [slice(lo, min(n, lo + per)) for lo in range(0, n, per)]
+
+
+def _pad_score(n: int) -> int:
+    return max(_pow2(n, 8), 8)
+
+
+def _pad_align(n: int) -> int:
+    return max((n + 7) // 8 * 8, 8)
+
+
+class ReadBuffer:
+    """A read batch's code buffer on a context's devices: one u8 replica
+    per device (shards sharing a device share it). upload_reads returns
+    one, and every readbuf= argument of the engine takes one."""
+
+    def __init__(self, replicas):
+        self.replicas = replicas                 # {torch.device: tensor}
+        self.primary = next(iter(replicas.values()))
 
 
 # ---------------------------------------------------------------------------
@@ -149,29 +190,32 @@ def current() -> Optional["DeviceContext"]:
 
 
 class DeviceContext:
-    """Holds the device-resident genome and the per-batch read buffer on
-    one device (``device``: "cuda" by default, "cpu" for the plain PyTorch
-    kernels)."""
+    """Holds the device-resident genome and the per-batch read buffers.
+
+    ``device``: "cuda" by default, "cpu" for the plain PyTorch kernels, or
+    a list of devices, the mesh as given (one entry per shard; entries may
+    repeat). For one device, ``n_devices`` (the CLI's -t) or
+    NGMLR_TPU_DEVICES widens it to a mesh (parallel/mesh.make_mesh:
+    "cuda" -> cuda:0 .. cuda:N-1, clamped with a warning to the visible
+    cards; the CPU is one device). Every score and align wave is then
+    split over the mesh: genome and read buffer replicated, problems in
+    contiguous per-shard slices, results gathered in problem order and
+    bit-identical to one device's (the reference's shard_map waves,
+    ngmlr_tpu/ops/device_engine.py:170-264)."""
 
     def __init__(self, genome_codes: np.ndarray,
                  n_devices: Optional[int] = None,
                  unit_spec: Optional[Tuple[int, int, int]] = None,
                  device=None):
-        self.device = resolve_device(device)
-        nd_env = os.environ.get("NGMLR_TPU_DEVICES")
-        nd = int(nd_env) if nd_env else int(n_devices or 1)
-        avail = (torch.cuda.device_count() if self.device.type == "cuda"
-                 else 1)
-        if nd > 1 and avail > 1:
-            raise NotImplementedError(
-                "-t %d over %d visible cards: the multi-GPU mesh is not "
-                "ported yet (ROADMAP open item 1.4)" % (nd, avail))
-        if nd > avail:
-            import sys as _sys
-            _sys.stderr.write(
-                "ngmlr-tpu: %d devices requested, %d available — using %d\n"
-                % (nd, avail, avail))
-        self.n_devices = 1
+        if isinstance(device, (list, tuple)):
+            self.devices = [_indexed(resolve_device(d)) for d in device]
+        else:
+            nd_env = os.environ.get("NGMLR_TPU_DEVICES")
+            self.devices = make_mesh(int(nd_env) if nd_env else n_devices,
+                                     _indexed(resolve_device(device)))
+        self.device = self.devices[0]            # the primary device
+        self.n_devices = len(self.devices)
+        self.mesh = self.devices if self.n_devices > 1 else None
         if unit_spec is not None and int(unit_spec[0]) > 1:
             raise NotImplementedError(
                 "a genome of %d units (> one 2^31 slab): the genome planes "
@@ -184,7 +228,10 @@ class DeviceContext:
         n = _size_class(self.genome_len + 8, 1 << 20)
         buf = np.full(n, NCODE, dtype=np.uint8)
         buf[: self.genome_len] = genome_codes
-        self.genome = torch.from_numpy(buf).to(self.device)
+        # one replica per device
+        self.genomes = {d: torch.from_numpy(buf).to(d)
+                        for d in dict.fromkeys(self.devices)}
+        self.genome = self.genomes[self.device]
         self.readbuf = None
         self.readbuf_len = 0
         # observability (the reference's csTime/scoreTime/alignTime split,
@@ -195,6 +242,9 @@ class DeviceContext:
         self.stats = {"score_s": 0.0, "score_waves": 0, "score_problems": 0,
                       "align_s": 0.0, "align_waves": 0, "align_problems": 0,
                       "upload_s": 0.0,
+                      # kernel launches: one per shard holding a problem
+                      # of each wave (= the waves on one device)
+                      "score_launches": 0, "align_launches": 0,
                       # DP-cell accounting, split per stage and padded vs
                       # useful so GCUPS can be reported honestly (padded =
                       # what the kernel actually computes incl. bucket
@@ -205,31 +255,76 @@ class DeviceContext:
                       # kernel each on the card; seed/device_search.py)
                       "search_v2_launches": 0}
 
-    def _upload(self, arr: np.ndarray):
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+    def _upload(self, arr: np.ndarray, device=None):
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(
+            self.device if device is None else device)
 
-    def _params_vec(self, params: Tuple[float, ...]):
-        """Device-cached score-parameter vector (uploads once per value)."""
+    def _params_vec(self, params: Tuple[float, ...], device=None):
+        """Device-cached score-parameter vector (uploads once per value and
+        device)."""
         cache = getattr(self, "_pvec_cache", None)
         if cache is None:
             cache = self._pvec_cache = {}
-        if params not in cache:
-            cache[params] = self._upload(np.asarray(params, dtype=np.float32))
-        return cache[params]
+        key = (params, self.device if device is None else device)
+        if key not in cache:
+            cache[key] = self._upload(np.asarray(params, dtype=np.float32),
+                                      key[1])
+        return cache[key]
 
-    def upload_reads(self, read_codes: np.ndarray):
-        """Upload a concatenated read-batch code buffer; returns the device
-        tensor (also set as the context default). Batches can be in flight
-        concurrently — each wave binds the buffer it was built against."""
+    def upload_reads(self, read_codes: np.ndarray) -> ReadBuffer:
+        """Upload a concatenated read-batch code buffer to every device;
+        returns its ReadBuffer (also set as the context default). Batches
+        can be in flight concurrently — each wave binds the buffer it was
+        built against."""
         t0 = time.perf_counter()
         # pad so clipped gathers never read past the end
         n = _pow2(len(read_codes) + 8, 4096)
         buf = np.full(n, NCODE, dtype=np.uint8)
         buf[: len(read_codes)] = read_codes
-        self.readbuf = self._upload(buf)
+        self.readbuf = ReadBuffer({d: self._upload(buf, d)
+                                   for d in dict.fromkeys(self.devices)})
         self.readbuf_len = len(read_codes)
         self.stats["upload_s"] += time.perf_counter() - t0
         return self.readbuf
+
+    def _replicas(self, readbuf) -> ReadBuffer:
+        """The ReadBuffer a wave binds: the given one, or the context
+        default for None. Raises when a device of the mesh has no
+        replica."""
+        rb = self.readbuf if readbuf is None else readbuf
+        if rb is None:
+            raise ValueError("no read buffer: upload_reads first")
+        missing = [str(d) for d in dict.fromkeys(self.devices)
+                   if d not in rb.replicas]
+        if missing:
+            raise ValueError("the read buffer has no replica on %s"
+                             % ", ".join(missing))
+        return rb
+
+    def _upload_shards(self, blocks):
+        """One upload per device of the (device, block) pairs of a wave;
+        returns each block's device tensor (a view of its device's
+        upload)."""
+        by_dev = {}
+        for i, (d, _) in enumerate(blocks):
+            by_dev.setdefault(d, []).append(i)
+        out = [None] * len(blocks)
+        for d, ids in by_dev.items():
+            big = self._upload(np.concatenate([blocks[i][1] for i in ids]), d)
+            off = 0
+            for i in ids:
+                n = len(blocks[i][1])
+                out[i] = big[off:off + n]
+                off += n
+        return out
+
+    def _count(self, pk):
+        """On a mesh, the shard's real problems (qlen > 0) counted on its
+        device, as the reference's shard bodies psum them; None on one
+        device."""
+        if self.mesh is None:
+            return None
+        return (pk[:, 5] > 0).sum()
 
     # -- scoring -----------------------------------------------------------
 
@@ -271,11 +366,11 @@ class DeviceContext:
     def score_dispatch_np(self, pk: np.ndarray, readbuf=None):
         """Async half of score_wave_np: upload + launches, no fetch.
         Returns an opaque pending for score_finalize_np."""
-        readbuf = self.readbuf if readbuf is None else readbuf
         t0 = time.perf_counter()
         P = len(pk)
         if P == 0:
             return None
+        rb = self._replicas(readbuf)
         W = (pk[:, 3] & ((1 << 28) - 1)).astype(np.int64)  # high bits: unit
         qlen = np.maximum(pk[:, 5].astype(np.int64), 1)
         # problems past the ssw maxSeqLen guard score -1 whatever the
@@ -291,52 +386,73 @@ class DeviceContext:
         Qp = np.int64(1) << np.ceil(np.log2(np.maximum(qlen, 64))
                                     ).astype(np.int64)
         key = Rp * (1 << 20) + Qp
-        metas = []
-        blocks = []
-        off = 0
+        metas = []     # (shard's problem indices, Rp, Qp)
+        blocks = []    # (device, padded shard block)
         for k in np.unique(key[live]):
             idxs = np.nonzero((key == k) & live)[0]
             rp, qp = int(k >> 20), int(k & ((1 << 20) - 1))
-            n = len(idxs)
-            Pp = max(_pow2(n, 8), 8)
-            pkb = np.zeros((Pp, 7), dtype=np.int32)
-            pkb[:n] = pk[idxs]
-            blocks.append(pkb)
-            metas.append((idxs, rp, qp, off, Pp))
-            off += Pp
+            per, shards = _shard_rows(len(idxs), self.n_devices, _pad_score)
+            for s, rows in enumerate(shards):
+                sub = idxs[rows]
+                pkb = np.zeros((per, 7), dtype=np.int32)
+                pkb[:len(sub)] = pk[sub]
+                blocks.append((self.devices[s], pkb))
+                metas.append((sub, rp, qp))
+            with self._stats_lock:
+                self.stats["score_waves"] += 1
+                self.stats["cells_score"] += len(idxs) * rp * qp
+                self.stats["cells_score_useful"] += int(
+                    np.sum(W[idxs] * qlen[idxs]))
         pending = []
-        if blocks:
-            # ONE packed upload per wave; per-bucket slices are views
-            big = self._upload(np.concatenate(blocks, axis=0))
-            for idxs, rp, qp, boff, Pp in metas:
-                scores = kernels.score_fill(self.genome, readbuf,
-                                            big[boff:boff + Pp], rp, qp)
-                pending.append((idxs, scores))
-                n = len(idxs)
-                with self._stats_lock:
-                    self.stats["score_waves"] += 1
-                    self.stats["cells_score"] += n * rp * qp
-                    self.stats["cells_score_useful"] += int(
-                        np.sum(W[idxs] * qlen[idxs]))
+        # ONE packed upload per device and wave; per-shard blocks are views
+        for (d, _), pkd, (idxs, rp, qp) in zip(
+                blocks, self._upload_shards(blocks), metas):
+            scores = kernels.score_fill(self.genomes[d], rb.replicas[d], pkd,
+                                        rp, qp)
+            pending.append((idxs, scores, self._count(pkd)))
         with self._stats_lock:
+            self.stats["score_launches"] += len(pending)
             self.stats["score_problems"] += P
             self.stats["score_s"] += time.perf_counter() - t0
         return (P, live, pending)
 
     def _fetch(self, tensors):
-        """Device -> host for a list of result tensors, in one transfer."""
-        if not tensors:
-            return []
-        flat = torch.cat([t.reshape(-1).view(torch.uint8) for t in tensors])
-        host = flat.cpu().numpy()
-        out, off = [], 0
-        for t in tensors:
-            nb = t.numel() * t.element_size()
-            dt = {torch.float32: np.float32, torch.int32: np.int32,
-                  torch.uint8: np.uint8}[t.dtype]
-            out.append(host[off:off + nb].view(dt).reshape(tuple(t.shape)))
-            off += nb
+        """Device -> host for a list of result tensors, in one transfer per
+        device."""
+        by_dev = {}
+        for i, t in enumerate(tensors):
+            by_dev.setdefault(t.device, []).append(i)
+        out = [None] * len(tensors)
+        for ids in by_dev.values():
+            host = torch.cat([tensors[i].reshape(-1).view(torch.uint8)
+                              for i in ids]).cpu().numpy()
+            off = 0
+            for i in ids:
+                t = tensors[i]
+                nb = t.numel() * t.element_size()
+                dt = {torch.float32: np.float32, torch.int32: np.int32,
+                      torch.int64: np.int64, torch.uint8: np.uint8}[t.dtype]
+                out[i] = host[off:off + nb].view(dt).reshape(tuple(t.shape))
+                off += nb
         return out
+
+    def _fetch_waves(self, a_items, s_items):
+        """ONE fetch (a transfer per device) of align pending items' (packed,
+        scalars) and score pending items' scores; the shards' problem
+        counts ride along into mesh_problems_psum. Returns (align pairs,
+        score arrays)."""
+        tensors = [x for _, p, s, _, _, _ in a_items for x in (p, s)]
+        tensors += [s for _, s, _ in s_items]
+        counts = [c for *_, c in a_items + s_items if c is not None]
+        flat = self._fetch(tensors + counts)
+        na = 2 * len(a_items)
+        fa = [(flat[2 * i], flat[2 * i + 1]) for i in range(len(a_items))]
+        if counts:
+            with self._stats_lock:
+                self.stats["mesh_problems_psum"] = (
+                    self.stats.get("mesh_problems_psum", 0)
+                    + sum(int(c) for c in flat[len(tensors):]))
+        return fa, flat[na:len(tensors)]
 
     def score_finalize_np(self, pend, fetched=None) -> np.ndarray:
         """Fetch + scatter the scores of a score_dispatch_np pending.
@@ -348,8 +464,8 @@ class DeviceContext:
         P, live, pending = pend
         out = np.full(P, -1.0, dtype=np.float32)   # guarded rows stay -1
         if fetched is None:
-            fetched = self._fetch([s for _, s in pending])
-        for (idxs, _), scores in zip(pending, fetched):
+            _, fetched = self._fetch_waves([], pending)
+        for (idxs, _, _), scores in zip(pending, fetched):
             out[idxs] = scores[:len(idxs)]
         with self._stats_lock:
             self.stats["score_s"] += time.perf_counter() - t0
@@ -406,7 +522,7 @@ class DeviceContext:
         P = len(pk_all)
         if P == 0:
             return None
-        readbuf = self.readbuf if readbuf is None else readbuf
+        rb = self._replicas(readbuf)
         t0 = time.perf_counter()
         pkf = pk_all.view(np.float32)
         W = (pk_all[:, 3] & ((1 << 28) - 1)).astype(np.int64)  # hi: unit
@@ -431,7 +547,6 @@ class DeviceContext:
         # lanes: multiples of 128 up to 1024, then size classes
         L_arr = np.where(wb <= 1024, (wb + 127) // 128 * 128,
                          self._size_class_vec(np.maximum(wb, 1), 1024))
-        pvec = self._params_vec(tuple(params))
         failed: List[int] = []
         chunks = []   # (L, [row indices])
         # bucket ALSO by per-problem pow2 classes of W and qlen: the launch
@@ -478,45 +593,48 @@ class DeviceContext:
             if chunk:
                 chunks.append((L, chunk))
 
-        # build every chunk's padded block, upload ONCE, launch on slices
+        # build every chunk's padded shard blocks, upload ONCE per device,
+        # launch on slices
         t_pack0 = time.perf_counter()
-        metas = []
-        blocks = []
-        off = 0
+        metas = []     # (L, shard's problem indices, Wp, Hp)
+        blocks = []    # (device, padded shard block)
         for L, idxs in chunks:
+            idxs = np.asarray(idxs)
             Wp = int(Wc_arr[idxs[0]])
             Hp = int(Hc_arr[idxs[0]])
-            B = max((len(idxs) + 7) // 8 * 8, 8)
-            blk = np.zeros((B, 12), dtype=np.int32)
-            blkf = blk.view(np.float32)
-            blk[:, 9] = 1   # empty slots: width 1, zero-length → inert
-            blkf[:, 10] = 1.0
-            blk[: len(idxs)] = pk_all[idxs]
-            blocks.append(blk)
-            metas.append((L, idxs, Wp, Hp, off, B))
-            off += B
+            B, shards = _shard_rows(len(idxs), self.n_devices, _pad_align)
+            for s, rows in enumerate(shards):
+                sub = idxs[rows]
+                blk = np.zeros((B, 12), dtype=np.int32)
+                blk[:, 9] = 1   # empty slots: width 1, zero-length → inert
+                blk.view(np.float32)[:, 10] = 1.0
+                blk[: len(sub)] = pk_all[sub]
+                blocks.append((self.devices[s], blk))
+                metas.append((L, sub, Wp, Hp))
+            with self._stats_lock:
+                self.stats["align_waves"] += 1
+                self.stats["cells_align"] += len(idxs) * (Wp + Hp) * L
+                self.stats["cells_align_useful"] += int(
+                    np.sum(qlen[idxs] * np.minimum(width[idxs], W[idxs])))
         t_up0 = time.perf_counter()
-        big = self._upload(np.concatenate(blocks, axis=0)) if blocks else None
+        blks = self._upload_shards(blocks)
         t_launch0 = time.perf_counter()
         pending = []
-        for L, idxs, Wp, Hp, boff, B in metas:
+        for (d, _), blk, (L, idxs, Wp, Hp) in zip(blocks, blks, metas):
             packed_ops, scalars = _convex_kernel(
-                self.genome, readbuf, big[boff:boff + B], pvec,
-                Wp=Wp, Hp=Hp, L=L)
+                self.genomes[d], rb.replicas[d], blk,
+                self._params_vec(tuple(params), d), Wp=Wp, Hp=Hp, L=L)
             # a conservative launch accepts its results unconditionally
             # (hmax <= width+3 is proven for monotone corridors; the
             # sentinel makes the retry recursion terminate even if that
             # proof is ever violated)
             pending.append((idxs, packed_ops, scalars,
                             (1 << 30) if conservative_L else L,
-                            int(packed_ops.shape[0]) // B))
-            with self._stats_lock:
-                self.stats["align_waves"] += 1
-                self.stats["cells_align"] += len(idxs) * (Wp + Hp) * L
-                self.stats["cells_align_useful"] += int(
-                    np.sum(qlen[idxs] * np.minimum(width[idxs], W[idxs])))
+                            int(packed_ops.shape[0]) // len(blk),
+                            self._count(blk)))
         t_end = time.perf_counter()
         with self._stats_lock:
+            self.stats["align_launches"] += len(pending)
             self.stats["align_problems"] += P
             self.stats["align_s"] += t_end - t0
             self.stats["align_pack_s"] = (self.stats.get("align_pack_s", 0.0)
@@ -525,7 +643,7 @@ class DeviceContext:
                 self.stats.get("align_upload_s", 0.0) + t_launch0 - t_up0)
             self.stats["align_launch_s"] = (
                 self.stats.get("align_launch_s", 0.0) + t_end - t_launch0)
-        return (pk_all, pending, params, readbuf, failed)
+        return (pk_all, pending, params, rb, failed)
 
     def fetch_waves_np(self, apend, spend):
         """ONE device -> host transfer covering an align pending and a score
@@ -534,11 +652,7 @@ class DeviceContext:
         a_items = [] if apend is None else apend[1]
         s_items = [] if spend is None else spend[2]
         t0 = time.perf_counter()
-        flat = self._fetch([x for _, p, s, _, _ in a_items for x in (p, s)]
-                           + [s for _, s in s_items])
-        na = 2 * len(a_items)
-        fa = [(flat[2 * i], flat[2 * i + 1]) for i in range(len(a_items))]
-        fs = flat[na:]
+        fa, fs = self._fetch_waves(a_items, s_items)
         with self._stats_lock:
             self.stats["align_fetch_s"] = (
                 self.stats.get("align_fetch_s", 0.0)
@@ -565,10 +679,7 @@ class DeviceContext:
         ok = np.zeros(P, dtype=np.uint8)
         ops: List[Optional[np.ndarray]] = [None] * P
         if fetched is None:
-            flat = self._fetch([x for _, p, s, _, _ in pending
-                                for x in (p, s)])
-            fetched = [(flat[2 * i], flat[2 * i + 1])
-                       for i in range(len(pending))]
+            fetched, _ = self._fetch_waves(pending, [])
             with self._stats_lock:
                 self.stats["align_fetch_s"] = (
                     self.stats.get("align_fetch_s", 0.0)
@@ -576,7 +687,8 @@ class DeviceContext:
         n_ok = 0
         corr_sum = 0
         lane_retry: List[int] = []
-        for (idxs, _, _, L, T4), (packed, scalars) in zip(pending, fetched):
+        for (idxs, _, _, L, T4, _), (packed, scalars) in zip(pending,
+                                                             fetched):
             packed = packed.reshape(-1, T4)
             for bi, i in enumerate(idxs):
                 (score_i, bxi, byi, sxi, syi, okf, hmax) = scalars[bi]
@@ -598,7 +710,8 @@ class DeviceContext:
             with self._stats_lock:
                 self.stats["lane_bound_retries"] = (
                     self.stats.get("lane_bound_retries", 0) + len(lane_retry))
-            # re-dispatch the subset conservatively; splice results back
+            # re-dispatch the subset conservatively (over the mesh too);
+            # splice results back
             sub = np.ascontiguousarray(pk_all[lane_retry])
             r = self.align_finalize_pk(self.align_dispatch_pk(
                 sub, params, readbuf, conservative_L=True))

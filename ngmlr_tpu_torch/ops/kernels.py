@@ -8,8 +8,9 @@ plain PyTorch versions and their launch counters.
   * expand_votes      csrc/expand_votes.cu      device-search vote expansion
 
 Each wrapper takes its inputs on one device. On a CUDA tensor it launches
-the kernel (built at first use by ops/build.py) on the current stream,
-checks the launch and adds one to ``launches[name]``; it never falls back.
+the kernel (built at first use by ops/build.py) with the inputs' device
+current, on that device's current stream, checks the launch and adds one
+to ``launches[name]``; it never falls back.
 On a CPU tensor it runs the plain version, the same arithmetic written as
 tensor code after the JAX reference's XLA twins
 (ngmlr_tpu/ops/device_engine.py), which the CPU tests hold bit for bit
@@ -54,12 +55,15 @@ def reset_launches():
 # ---------------------------------------------------------------------------
 
 def _on_cuda(name, *tensors) -> bool:
-    """True for CUDA inputs, False for CPU inputs; raises on a mix or on
-    any other device."""
-    kinds = {t.device.type for t in tensors}
-    if len(kinds) != 1 or not kinds <= {"cpu", "cuda"}:
+    """True for CUDA inputs, False for CPU inputs; raises on a mix, on
+    inputs split across two cards or on any other device."""
+    devs = {t.device for t in tensors}
+    kinds = {d.type for d in devs}
+    if len(kinds) != 1 or not kinds <= {"cpu", "cuda"} \
+            or (kinds == {"cuda"} and len(devs) != 1):
         raise ValueError("%s: inputs must all lie on the CPU or all on one "
-                         "CUDA device, got %s" % (name, sorted(kinds)))
+                         "CUDA device, got %s"
+                         % (name, sorted(str(d) for d in devs)))
     return kinds == {"cuda"}
 
 
@@ -74,8 +78,12 @@ def _need(name, arg, t, dtype, ndim, cols=None):
         raise ValueError("%s: %s must be contiguous" % (name, arg))
 
 
-def _launch(name, fn, *args):
-    rc = fn(*args)
+def _launch(name, dev, fn, *args):
+    """Launch fn(*args, stream) with dev current, on dev's current stream:
+    the kernels' launches and their per-device attribute opt-ins go to the
+    runtime's current device."""
+    with torch.cuda.device(dev):
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("%s: kernel launch failed (cudaError %d)"
                            % (name, rc))
@@ -86,10 +94,6 @@ def _launch(name, fn, *args):
 def _lib():
     from .build import get_lib
     return get_lib()
-
-
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
 
 
 # ---------------------------------------------------------------------------
@@ -171,9 +175,9 @@ def score_fill(genome, readbuf, pk, Rp: int, Qp: int):
         return score_fill_plain(genome, readbuf, pk, Rp, Qp)
     P = pk.shape[0]
     out = torch.empty(P, dtype=torch.float32, device=pk.device)
-    _launch(name, _lib().ngt_score_fill, genome.data_ptr(), genome.numel(),
-            readbuf.data_ptr(), readbuf.numel(), pk.data_ptr(), P, Rp, Qp,
-            out.data_ptr(), _stream())
+    _launch(name, pk.device, _lib().ngt_score_fill, genome.data_ptr(),
+            genome.numel(), readbuf.data_ptr(), readbuf.numel(),
+            pk.data_ptr(), P, Rp, Qp, out.data_ptr())
     return out
 
 
@@ -214,8 +218,8 @@ def corridor_windows(pk, TpP: int):
     ymin = torch.empty((B, TpP), dtype=torch.int32, device=pk.device)
     ymax = torch.empty_like(ymin)
     hmax = torch.empty(B, dtype=torch.int32, device=pk.device)
-    _launch(name, _lib().ngt_corridor_windows, pk.data_ptr(), B, TpP,
-            ymin.data_ptr(), ymax.data_ptr(), hmax.data_ptr(), _stream())
+    _launch(name, pk.device, _lib().ngt_corridor_windows, pk.data_ptr(), B,
+            TpP, ymin.data_ptr(), ymax.data_ptr(), hmax.data_ptr())
     return ymin, ymax, hmax
 
 
@@ -280,11 +284,11 @@ def convex_fill(genome, readbuf, pk, params, ymin, ymax, L: int):
     if state > lib.ngt_convex_fill_smem_cap():
         # ring buffers too wide for shared memory: one global slab per block
         scratch = torch.empty(B * state, dtype=torch.uint8, device=dev)
-    _launch(name, lib.ngt_convex_fill, genome.data_ptr(), genome.numel(),
+    _launch(name, dev, lib.ngt_convex_fill, genome.data_ptr(), genome.numel(),
             readbuf.data_ptr(), readbuf.numel(), pk.data_ptr(),
             params.data_ptr(), ymin.data_ptr(), ymax.data_ptr(), B, TpP, L,
             dirs.data_ptr(), best.data_ptr(), by.data_ptr(), bx.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), _stream())
+            None if scratch is None else scratch.data_ptr())
     return dirs, best, by, bx
 
 
@@ -397,10 +401,10 @@ def convex_backtrack(dirs, ymin, pk, bx, by):
     sx = torch.empty(B, dtype=torch.int32, device=dev)
     sy = torch.empty_like(sx)
     state = torch.empty_like(sx)
-    _launch(name, _lib().ngt_convex_backtrack, dirs.data_ptr(),
+    _launch(name, dev, _lib().ngt_convex_backtrack, dirs.data_ptr(),
             ymin.data_ptr(), pk.data_ptr(), bx.data_ptr(), by.data_ptr(),
             B, TpP, L, packed.data_ptr(), sx.data_ptr(), sy.data_ptr(),
-            state.data_ptr(), _stream())
+            state.data_ptr())
     return packed, sx, sy, state
 
 
@@ -485,9 +489,9 @@ def expand_votes(cum2, d2tp, ct2p, L: int):
     ct = torch.empty_like(slot)
     if B == 0 or L == 0:
         return slot, d2t, ct
-    _launch(name, _lib().ngt_expand_votes, cum2.data_ptr(), d2tp.data_ptr(),
-            ct2p.data_ptr(), B, SL2, L, slot.data_ptr(), d2t.data_ptr(),
-            ct.data_ptr(), _stream())
+    _launch(name, dev, _lib().ngt_expand_votes, cum2.data_ptr(),
+            d2tp.data_ptr(), ct2p.data_ptr(), B, SL2, L, slot.data_ptr(),
+            d2t.data_ptr(), ct.data_ptr())
     return slot, d2t, ct
 
 

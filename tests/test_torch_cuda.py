@@ -185,7 +185,10 @@ def test_convex_chain_kernels_match_plain(dev, Wp, Hp, L):
     assert torch.equal(scalars[:, 6], hmax)
 
 
-def test_golden_test2_on_the_card(dev):
+def _map_test2(device):
+    """test_2 through a Pipeline on `device` (one device or the mesh's
+    list): (pipeline, SAM records, the run's kernel launches, golden
+    records)."""
     from ngmlr_tpu_torch.cli import build_parser, config_from_args
     from ngmlr_tpu_torch.pipeline.runner import Pipeline
     data = os.path.join(REPO, "tests", "data", "test_2")
@@ -193,20 +196,107 @@ def test_golden_test2_on_the_card(dev):
             "-q", os.path.join(data, "reads_100_2200bp.fa")]
     args = build_parser().parse_args(argv)
     p = Pipeline(config_from_args(args, argv), args.reference,
-                 use_cache=False, device=dev)
+                 use_cache=False, device=device)
     buf = io.BytesIO()
     K.reset_launches()
     p.run(args.query, buf)
+    torch.cuda.synchronize()
     with open(os.path.join(REPO, "tests", "golden", "test_2.sam"), "rb") as f:
         want = f.read()
 
     def rec(b):
         return [l for l in b.split(b"\n") if not l.startswith(b"@PG")]
-    assert rec(buf.getvalue()) == rec(want)
+    return p, rec(buf.getvalue()), dict(K.launches), rec(want)
+
+
+def test_golden_test2_on_the_card(dev):
+    p, out, launches, want = _map_test2(dev)
+    assert out == want
     # the card searches candidates itself, at any genome size
     assert p.dev_search is not None
-    assert K.launches["expand_votes"] == p.ctx.stats["search_v2_launches"]
-    assert all(K.launches[k] > 0 for k in K.launches), K.launches
+    assert launches["expand_votes"] == p.ctx.stats["search_v2_launches"]
+    assert all(launches[k] > 0 for k in launches), launches
+
+
+def _check_mesh_run(p, launches, devices):
+    st = p.ctx.stats
+    assert p.ctx.devices == devices and p.ctx.mesh is not None
+    assert launches["score_fill"] == st["score_launches"]
+    for k in ("corridor_windows", "convex_fill", "convex_backtrack"):
+        assert launches[k] == st["align_launches"], (k, launches, st)
+    assert launches["expand_votes"] == st["search_v2_launches"] > 0
+    assert st["score_launches"] > st["score_waves"]
+    assert st["mesh_problems_psum"] > 0
+    assert p.dev_search.device == devices[0]
+
+
+def test_golden_test2_on_a_two_shard_mesh(dev):
+    """-t 2's mesh as two shards sharing the one card: the golden bytes,
+    each wave's shards launched one by one."""
+    mesh = [torch.device("cuda", 0)] * 2
+    p, out, launches, want = _map_test2(mesh)
+    assert out == want
+    _check_mesh_run(p, launches, mesh)
+
+
+@pytest.fixture
+def two_cards(dev):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    return [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
+def test_golden_test2_over_two_cards(two_cards):
+    p, out, launches, want = _map_test2(two_cards)
+    assert out == want
+    _check_mesh_run(p, launches, two_cards)
+    assert set(p.ctx.genomes) == set(two_cards)
+
+
+def test_wrappers_raise_on_inputs_split_across_cards(two_cards):
+    """No wrapper launches, or runs its plain version, on inputs that lie
+    on two cards (corridor_windows takes one tensor)."""
+    d0, d1 = two_cards
+    g = torch.zeros(4096, dtype=torch.uint8, device=d0)
+    r = torch.zeros(4096, dtype=torch.uint8, device=d1)
+    spk = torch.zeros((8, 7), dtype=torch.int32, device=d0)
+    apk = torch.zeros((8, 12), dtype=torch.int32, device=d1)
+    par = torch.zeros(6, dtype=torch.float32, device=d0)
+    y = torch.zeros((8, 512), dtype=torch.int32, device=d0)
+    dirs = torch.zeros((8, 512, 128), dtype=torch.uint8, device=d0)
+    b = torch.zeros(8, dtype=torch.int32, device=d0)
+    cum = torch.zeros((8, 16), dtype=torch.int32, device=d0)
+    tab = torch.zeros((8, 17), dtype=torch.int32, device=d1)
+    K.reset_launches()
+    calls = [lambda: K.score_fill(g, r, spk, 64, 64),
+             lambda: K.convex_fill(g, g, apk, par, y, y, 128),
+             lambda: K.convex_backtrack(dirs, y, apk, b, b),
+             lambda: K.expand_votes(cum, tab, tab, 64)]
+    for call in calls:
+        with pytest.raises(ValueError, match="one CUDA device"):
+            call()
+    assert sum(K.launches.values()) == 0
+
+
+def test_stdout_dump_on_the_card(dev):
+    """--stdout 5 (mapped segments) through the CLI on the card: the
+    serial path's one-problem waves, byte for byte against the reference
+    binary's dump."""
+    import gzip
+    import subprocess
+    data = os.path.join(REPO, "tests", "data", "test_2")
+    env = dict(os.environ, NGMLR_TORCH_DEVICE="cuda", NGMLR_TPU_STRICT="1")
+    r = subprocess.run(
+        [sys.executable, "-m", "ngmlr_tpu_torch",
+         "-r", os.path.join(data, "ref_chr21_20kb.fa"),
+         "-q", os.path.join(data, "reads_100_2200bp.fa"), "-x", "pacbio",
+         "--stdout", "5", "-o", os.devnull],
+        capture_output=True, env=env, cwd=REPO, timeout=600)
+    assert r.returncode == 0, r.stderr[-2000:]
+    golden = os.path.join(REPO, "tests", "golden", "dumps",
+                          "test_2_stdout5.txt.gz")
+    with gzip.open(golden, "rb") as f:
+        assert r.stdout == f.read()
 
 
 @pytest.mark.parametrize("B,L", [(256, 768), (8, 32768)])

@@ -447,10 +447,10 @@ def test_lane_bound_retry_reruns_conservatively():
     blk.view(np.float32)[:, 10] = 1.0
     blk[:3] = pk
     packed, scalars = tde._convex_kernel(
-        tctx.genome, tctx.readbuf, torch.from_numpy(blk),
+        tctx.genome, tctx.readbuf.primary, torch.from_numpy(blk),
         tctx._params_vec(params), Wp=Wp, Hp=Hp, L=L)
     assert int(scalars[0, 6]) > L and int(scalars[1:3, 6].max()) <= L
-    pend = (pk, [(np.arange(3), packed, scalars, L, (Wp + Hp) // 4)],
+    pend = (pk, [(np.arange(3), packed, scalars, L, (Wp + Hp) // 4, None)],
             params, tctx.readbuf, [])
     got = tctx.align_finalize_pk(pend)
     assert tctx.stats["lane_bound_retries"] == 1

@@ -127,8 +127,8 @@ def test_no_card_and_no_cpu_request_raises(monkeypatch):
 
 
 def test_unported_options_raise():
-    """The mesh (-t N over several cards) and multi-unit genomes are not
-    ported; asking for them raises instead of running something else."""
+    """Multi-unit genomes are not ported; asking for one raises instead of
+    running something else."""
     codes = np.zeros(64, np.uint8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tde.DeviceContext(codes, unit_spec=(2, 31, 64), device="cpu")
