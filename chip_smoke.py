@@ -11,6 +11,9 @@ Phases, each printed with its wall time:
      cases of the tiled corridor_windows, convex_fill and convex_backtrack),
      with the kernel's, the plain version's and (where one exists) a
      library call's times, and the bound worked out from this run's inputs;
+     then the four alignment kernels on rows spread over the planes of a
+     genome of several units (windows at, past and before each plane's end;
+     the fill's tiled and wide lane classes), bit for bit;
   3. the goldens: the nine checks of scripts/check_goldens.sh (test_2
      pacbio and ont, test_4 and the other six) mapped through the port's
      Pipeline on the card with the default gate (the device candidate
@@ -37,7 +40,14 @@ Phases, each printed with its wall time:
      (torch.distributed, gloo), merged, equal to the single run of test_2;
      then phase 4's files through a mesh of two shards sharing cuda:0 (the
      CLI's -t 2 over two cards), its SAM equal to phase 4's byte for byte,
-     and again over every visible card where there is more than one.
+     and again over every visible card where there is more than one;
+  7. genomes of several units (the TableUnit analog, slabs shrunk by
+     NGMLR_TPU_UNIT_SLAB_BITS), through the host search and the Python
+     assembly path: (a) the case of tests/test_table_units.py:69 (two
+     5 Mbp chromosomes, 14 reads) in 3 units, its SAM equal to its flat
+     run's; (b) phase 4's 50 Mbp genome in 6 units and its 256 reads, the
+     SAM equal to phase 4's; both under NGMLR_TPU_STRICT=1, launching no
+     expand_votes.
 With --profile DIR, torch.profiler traces the first mapping of phases 4
 and 5 (device time by kernel and the busy share; in phase 4 also the
 launch shapes of corridor_windows, convex_fill and convex_backtrack and
@@ -46,7 +56,7 @@ wavefront). Then one JSON line
 listing every kernel, the card's line from nvidia-smi, and the final line
 {"ok": true, "device": {...}}.
 
-Every mapping run (each golden, each mapping of phases 4 to 6; a process
+Every mapping run (each golden, each mapping of phases 4 to 7; a process
 of phase 6's two-process run reports its own) sets the launch counters to
 0 just before it drives the pipeline and reads them just after; each run's
 counts must equal the launches its own engine recorded (one score_fill per
@@ -283,22 +293,75 @@ def align_rows(rng, genome, readbuf, B, Wr, Hr, widths, modes,
                                   if b & 1 else read)
             qs_next += H
         mode = int(modes[b % len(modes)])
-        width = int(rng.integers(*widths))
-        if mode == 0:
-            w = W + 1
-            ci = int(np.float32(w) * np.float32(-0.2))
-            width = w + int(np.float32(w) * np.float32(0.2))
-            cf = (1.0, 0.0)
-        elif mode == 1:
-            ci = width // 2
-            cf = (1.0, 0.0)
-        else:
-            ci = 0
-            cf = (float(np.float32(H) / np.float32(W)),
-                  float(np.float32(width) / np.float32(2.0)))
+        ci, width, cf = corridor(mode, W, H, int(rng.integers(*widths)))
         pku[b, 0], pku[b, 1] = ds, ds + W
         pk[b, 2:10] = (0, W, qs, H, b & 1, mode, ci, width)
         pkf[b, 10:12] = cf
+    return pk
+
+
+def corridor(mode, W, H, width):
+    """(ci, width, (k, d)) of a corridor of the given mode over a W x H
+    problem, as the aligner makes them (FULL: its own width)."""
+    f32 = np.float32
+    if mode == 0:
+        w = W + 1
+        return (int(f32(w) * f32(-0.2)), w + int(f32(w) * f32(0.2)),
+                (1.0, 0.0))
+    if mode == 1:
+        return width // 2, width, (1.0, 0.0)
+    return 0, width, (float(f32(H) / f32(W)), float(f32(width) / f32(2.0)))
+
+
+# phase 2's unit rows: a genome of UNIT_PLANES planes of UNIT_PLANE bytes
+# (a slab of 3/4 of the plane, the rest its halo), as DeviceContext stacks a
+# genome of more than one slab
+UNIT_PLANES = 5
+UNIT_PLANE = 1 << 20
+UNIT_KINDS = ("end", "past-end", "halo")
+
+
+def unit_rows(rng, planes, readbuf, B, Wr, widths, modes, H_max=None,
+              q0=0, plane_len=None):
+    """Align rows int32 [B, 12] over the planes of a unit genome u8
+    [U, planeP], each row's unit (spread over every plane) in bits 28+ of
+    W, ds and hi local to its plane. By kind, cycling: end, a window that
+    ends 0-64 bases before its plane's end (plane_len, else the plane's
+    whole length); past-end, one that starts 1-64 bases before it, so its
+    window runs past that end (past the plane itself, a position reads the
+    plane's last byte); halo, one in the plane's last quarter (the slab's
+    halo). Each query is a PacBio-like mutated copy of its window
+    (as the kernels read it), at most H_max long, written into readbuf from
+    q0 (reverse-complemented on odd rows). The first 7 columns are score
+    rows."""
+    U, planeP = planes.shape
+    end = planeP if plane_len is None else plane_len
+    pk = np.zeros((B, 12), np.int32)
+    pku, pkf = pk.view(np.uint32), pk.view(np.float32)
+    qs = q0
+    for b in range(B):
+        u = b % U
+        kind = UNIT_KINDS[(b // U) % len(UNIT_KINDS)]
+        W = int(rng.integers(*Wr))
+        if kind == "end":
+            hi = end - int(rng.integers(0, 65))
+            ds = hi - W
+        elif kind == "past-end":
+            ds = end - int(rng.integers(1, 65))
+            hi = ds + W
+        else:
+            ds = int(rng.integers(end * 3 // 4, end - W))
+            hi = ds + W
+        window = planes[u, np.minimum(np.arange(ds, ds + W), planeP - 1)]
+        q = np.frombuffer(mutate_codes(rng, window), np.uint8)[:H_max]
+        H = len(q)
+        readbuf[qs:qs + H] = np.where(q < 4, q ^ 1, q)[::-1] if b & 1 else q
+        mode = int(modes[b % len(modes)])
+        ci, width, cf = corridor(mode, W, H, int(rng.integers(*widths)))
+        pku[b, 0], pku[b, 1] = ds, hi
+        pk[b, 2:10] = (0, W | (u << 28), qs, H, b & 1, mode, ci, width)
+        pkf[b, 10:12] = cf
+        qs += H
     return pk
 
 
@@ -747,7 +810,70 @@ def phase_kernels(rng, dev="cuda"):
     rec["convex_fill"]["max_abs_err"] = fill_err
     rec["convex_backtrack"]["max_abs_err"] = bt_err
     rec["expand_votes"] = phase_expand_votes(rng, dev)
+    for name, e in unit_kernel_errs(dev).items():
+        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], e)
     return rec
+
+
+def unit_kernel_errs(dev):
+    """The four alignment kernels against their plain versions on rows of
+    a genome of UNIT_PLANES unit planes (unit_rows: windows at and past each
+    plane's end and in its halo): score_fill at the hot 320 x 256 bucket,
+    then corridor_windows, convex_fill and convex_backtrack at a tiled and
+    a wide lane class of the fill. Returns {kernel: max_abs_err}."""
+    import torch
+    from ngmlr_tpu_torch.ops import kernels as K
+    rng = np.random.default_rng(70)
+    planes_np = rng.integers(0, 5, (UNIT_PLANES, UNIT_PLANE)).astype(np.uint8)
+    readbuf_np = rng.integers(0, 5, 1 << 20).astype(np.uint8)
+    spk_np = unit_rows(rng, planes_np, readbuf_np, 600, (306, 307), (1, 2),
+                       (1,), H_max=256)[:, :7]
+    shapes = [(tag, Wp, Hp, L, unit_rows(rng, planes_np, readbuf_np, 15,
+                                         (600, 1800), widths, modes,
+                                         H_max=Hp - 1, q0=q0))
+              for tag, Wp, Hp, L, widths, modes, q0 in (
+                  ("tiled", 2048, 2048, 256, (100, 300), (1, 2, 3), 200_000),
+                  ("wide", 2048, 2048, 6144, (800, 1600), (0, 2, 3),
+                   600_000))]
+    planes = torch.from_numpy(planes_np).to(dev)
+    readbuf = torch.from_numpy(readbuf_np).to(dev)
+    params = torch.tensor([2.0, -5.0, -5.0, -5.0, -1.0, 0.15],
+                          dtype=torch.float32, device=dev)
+    spk = torch.from_numpy(np.ascontiguousarray(spk_np)).to(dev)
+    got = K.score_fill(planes, readbuf, spk, 320, 256)
+    errs = {"score_fill": max_abs_err(
+        [(got, K.score_fill_plain(planes, readbuf, spk, 320, 256))])}
+    log("units: score_fill P=%d over %d planes of %d B: max_abs_err=%g, "
+        "median score %g" % (len(spk_np), UNIT_PLANES, UNIT_PLANE,
+                             errs["score_fill"], float(got.median())))
+    errs.update(corridor_windows=0.0, convex_fill=0.0, convex_backtrack=0.0)
+    for tag, Wp, Hp, L, apk_np in shapes:
+        apk = torch.from_numpy(apk_np).to(dev)
+        TpP = Wp + Hp
+        win = K.corridor_windows(apk, TpP)
+        e_cw = max_abs_err(zip(win, K.corridor_windows_plain(apk, TpP)))
+        ymin, ymax, hmax = win
+        got = K.convex_fill(planes, readbuf, apk, params, ymin, ymax, L)
+        want = K.convex_fill_plain(planes, readbuf, apk, params, ymin, ymax,
+                                   L)
+        live = (ymin < apk[:, 5:6])[:, :, None].expand(-1, -1, L)
+        e_fill = max_abs_err([(got[1], want[1]), (got[2], want[2]),
+                              (got[3], want[3]),
+                              (got[0][live], want[0][live])])
+        dirs, best, by, bx = got
+        bt = K.convex_backtrack(dirs, ymin, apk, bx, by)
+        e_bt = max_abs_err(zip(bt, K.convex_backtrack_plain(dirs, ymin, apk,
+                                                            bx, by)))
+        for k, e in (("corridor_windows", e_cw), ("convex_fill", e_fill),
+                     ("convex_backtrack", e_bt)):
+            errs[k] = max(errs[k], e)
+        log("units: convex %s B=%d Wp=%d Hp=%d L=%d: windows, fill, "
+            "backtrack max_abs_err = %g, %g, %g; ok=%d/%d, max hmax %d"
+            % (tag, apk.shape[0], Wp, Hp, L, e_cw, e_fill, e_bt,
+               int(bt[3].eq(K.DONE).sum()), apk.shape[0], int(hmax.max())))
+        del got, want, bt, dirs
+        torch.cuda.empty_cache()
+    return errs
 
 
 def fill_edge_err(name, dev):
@@ -1817,6 +1943,139 @@ def phase_scaleout(main_path, workdir, dev="cuda"):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 7: genomes of several units (the TableUnit analog, at shrunken slabs)
+# ---------------------------------------------------------------------------
+
+# (a) the case of tests/test_table_units.py:69: 3 units of 2^22 bases
+UNIT_SMALL_BITS = 22
+UNIT_SMALL_READS = 14
+# (b) phase 4's genome and reads, the genome in 6 units of 2^23 bases
+# (8 Mbp, a 1 Mbp halo)
+UNIT_MAIN_BITS = 23
+
+
+def table_unit_files(workdir):
+    """The files of tests/test_table_units.py:69 (its _write_fasta and
+    _make_reads, seed 31): two 5 Mbp chromosomes and 14 reads of 400-2000
+    bp at ~5% substitutions, half reverse-complemented. Returns (ref path,
+    reads path)."""
+    rng = np.random.default_rng(31)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    os.makedirs(workdir, exist_ok=True)
+    ref_p = os.path.join(workdir, "multi.fa")
+    reads_p = os.path.join(workdir, "reads.fa")
+    chroms = []
+    with open(ref_p, "wb") as f:
+        for c in range(2):
+            seq = bases[rng.integers(0, 4, size=5_000_000)]
+            chroms.append(seq)
+            f.write(b">chr%d\n" % (c + 1))
+            g = seq.tobytes()
+            for i in range(0, len(g), 80):
+                f.write(g[i:i + 80] + b"\n")
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    with open(reads_p, "wb") as f:
+        for i in range(UNIT_SMALL_READS):
+            c = int(rng.integers(0, len(chroms)))
+            n = int(rng.integers(400, 2000))
+            pos = int(rng.integers(0, len(chroms[c]) - n))
+            s = bytearray(chroms[c][pos:pos + n].tobytes())
+            for _ in range(n // 20):
+                s[int(rng.integers(0, n))] = b"ACGT"[int(rng.integers(0, 4))]
+            s = bytes(s)
+            if rng.random() < 0.5:
+                s = s.translate(comp)[::-1]
+            f.write(b">r%d_c%d_%d\n%s\n" % (i, c, pos, s))
+    return ref_p, reads_p
+
+
+def unit_map(tag, ref_p, reads_p, slab_bits):
+    """Map reads_p through a Pipeline on the card with
+    NGMLR_TPU_UNIT_SLAB_BITS = slab_bits (None: the default, one unit) and
+    NGMLR_TPU_STRICT=1, the launch counters set to 0 just before the map
+    and checked just after. A genome of several units must take the host
+    search and the Python assembly path and launch no expand_votes.
+    Returns (pipeline, SAM, setup s, map s, launches)."""
+    old = [_env("NGMLR_TPU_UNIT_SLAB_BITS",
+                None if slab_bits is None else str(slab_bits)),
+           _env("NGMLR_TPU_STRICT", "1")]
+    try:
+        p, t_setup = _pipeline(ref_p, reads_p)
+        out, t_run, launches = _run_on(p, reads_p)
+    finally:
+        _env("NGMLR_TPU_UNIT_SLAB_BITS", old[0])
+        _env("NGMLR_TPU_STRICT", old[1])
+    check_launches(tag, launches, p.ctx.stats)
+    if slab_bits is not None:
+        check(p.ref.n_units > 1 and p.ctx.n_units == p.ref.n_units
+              and p.ctx.genome.dim() == 2,
+              "%s: %d units on the host, genome of %d dims on the card"
+              % (tag, p.ref.n_units, p.ctx.genome.dim()))
+        check(p.native is None and p.dev_search is None,
+              "%s: the native engine or the device search is on" % tag)
+        check(launches["expand_votes"] == 0 and launches["score_fill"] > 0
+              and launches["convex_fill"] > 0,
+              "%s: launches %s" % (tag, launches))
+    log("%s: %d units, %d of %d reads mapped, setup %.2f s, map %.2f s, "
+        "launches %s" % (tag, p.ref.n_units, p.stats["mapped"],
+                         p.stats["reads"], t_setup, t_run,
+                         json.dumps(launches)))
+    return p, out, t_setup, t_run, launches
+
+
+def phase_table_units(main_path, workdir):
+    """Phase 7: (a) the case of tests/test_table_units.py:69 on the card,
+    its 3-unit SAM equal to its flat SAM; (b) phase 4's genome in 6 units
+    and its reads, the SAM equal to phase 4's (flat, native engine)."""
+    rec = {}
+    ref_p, reads_p = table_unit_files(workdir)
+    _, flat, _, _, _ = unit_map("units (a) flat", ref_p, reads_p, None)
+    p, multi, t_setup, t_run, launches = unit_map(
+        "units (a)", ref_p, reads_p, UNIT_SMALL_BITS)
+    rec["small"] = dict(units=p.ref.n_units, reads=p.stats["reads"],
+                        mapped=p.stats["mapped"], setup_s=t_setup,
+                        map_s=t_run, launches=launches,
+                        sam_identical=_records(multi) == _records(flat))
+    check(p.ref.n_units == 3, "units (a): %d units, not 3" % p.ref.n_units)
+    check(p.stats["mapped"] == UNIT_SMALL_READS,
+          "units (a): %d of %d reads mapped" % (p.stats["mapped"],
+                                                UNIT_SMALL_READS))
+    check(rec["small"]["sam_identical"],
+          "units (a): the 3-unit SAM differs from the flat SAM")
+    del p
+
+    ref_p, reads_p, want = main_path
+    p, out, t_setup, t_run, launches = unit_map(
+        "units (b)", ref_p, reads_p, UNIT_MAIN_BITS)
+    planes = p.ctx.genome
+    rec["main"] = dict(units=p.ref.n_units, reads=p.stats["reads"],
+                       mapped=p.stats["mapped"], setup_s=t_setup,
+                       map_s=t_run, reads_per_s=p.stats["reads"] / t_run,
+                       planes_shape=list(planes.shape),
+                       planes_bytes=planes.nbytes, launches=launches,
+                       score_waves=p.ctx.stats["score_waves"],
+                       align_waves=p.ctx.stats["align_waves"],
+                       sam_identical=_records(out) == _records(want))
+    log("units (b): %s" % json.dumps(rec["main"]))
+    check(p.ref.n_units == 6, "units (b): %d units, not 6" % p.ref.n_units)
+    check(rec["main"]["sam_identical"],
+          "units (b): the 6-unit SAM differs from phase 4's")
+    # the planes a real genome would need at the default 2^31 slab, as
+    # ReferenceGenome and DeviceContext size them (reckoned, not allocated)
+    from ngmlr_tpu_torch.ops.device_engine import _size_class
+    slab = 1 << 31
+    n = 4_600_000_000
+    rec["real_4g6_planes"] = dict(
+        units=-(-n // slab), plane_bytes=_size_class(
+            min(slab + min(1 << 24, max(1 << 20, slab >> 3)), n) + 8,
+            1 << 20))
+    log("a 4.6 Gbp genome at the 2^31 slab: %d planes of %d B a replica "
+        "(reckoned)" % (rec["real_4g6_planes"]["units"],
+                        rec["real_4g6_planes"]["plane_bytes"]))
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -1870,6 +2129,11 @@ def main():
                                     "smoke_scaleout"))
         log("phase 6 (scale-out and dumps): %.2f s"
             % (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        record["table_units"] = phase_table_units(
+            main_path, os.path.join(HERE, "ngmlr_tpu_torch", "_build",
+                                    "smoke_units"))
+        log("phase 7 (table units): %.2f s" % (time.perf_counter() - t0))
         # the launches of the one-chromosome run, the main path
         launches = record["mapping"]["launches"]
     except PhaseError as e:

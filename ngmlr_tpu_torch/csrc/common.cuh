@@ -6,7 +6,10 @@
 //   align rows [B, 12]: the same seven, then corridor mode, ci, width,
 //                       k (f32 bits), d (f32 bits)
 // and gathers sequence codes straight from the device genome and read
-// buffer (no [B, W] window tensors exist on the card).
+// buffer (no [B, W] window tensors exist on the card). Bits 28+ of W name
+// the problem's genome unit: the genome is a stack of unit planes of
+// `plane` bytes each (a flat genome is unit 0, its plane the whole buffer),
+// and a problem reads its own plane only.
 //
 // All f32 arithmetic here must round exactly as the JAX reference does on
 // its CPU backend: the build passes -fmad=false and the helpers below use
@@ -27,15 +30,30 @@ constexpr int WALK = 0, DONE = 1, FAIL = 2;
 constexpr int W_MASK = (1 << 28) - 1;   // bits 28+ of the W column: unit id
 constexpr int32_t BIG = 1 << 30;
 
-// Reference window code i of a RefDesc (ds, diff, hi, W): the genome code at
-// ds + i - diff when diff <= i < W and that position is below hi, else 'x'.
-__device__ __forceinline__ int ref_code(const uint8_t* __restrict__ genome,
-                                        int64_t glen, uint32_t ds, int diff,
+// The unit of a problem: bits 28+ of its W column.
+__device__ __forceinline__ uint32_t row_unit(int32_t w) {
+  return (uint32_t)w >> 28;
+}
+
+// The first byte of a unit's plane. 64-bit: a plane of the 2^31 slab is
+// 3 GiB, so unit * plane passes 32 bits from unit 1.
+__device__ __forceinline__ const uint8_t* plane_base(const uint8_t* genome,
+                                                    uint32_t unit,
+                                                    int64_t plane) {
+  return genome + (int64_t)unit * plane;
+}
+
+// Reference window code i of a RefDesc (ds, diff, hi, W) in its plane (base
+// from plane_base): the code at ds + i - diff when diff <= i < W and that
+// position is below hi, else 'x'; a position past the plane reads its last
+// byte, as the reference's gather clamps it.
+__device__ __forceinline__ int ref_code(const uint8_t* __restrict__ base,
+                                        int64_t plane, uint32_t ds, int diff,
                                         uint32_t hi, int W, int i) {
   if (i < diff || i >= W) return XCODE;
   const int64_t pos = (int64_t)ds + (int64_t)(i - diff);
   if (pos >= (int64_t)hi) return XCODE;
-  return genome[pos < glen ? pos : glen - 1];
+  return base[pos < plane ? pos : plane - 1];
 }
 
 // Query code j of a QryDesc (start, length, rev): the read slice,
@@ -68,7 +86,7 @@ __device__ __forceinline__ int corridor_off(int mode, int ci, float k,
 }
 
 struct AlignRow {
-  uint32_t ds, hi;
+  uint32_t ds, hi, unit;
   int diff, W, qs, H, rev, mode, ci, width;
   float k, d;
 };
@@ -81,6 +99,7 @@ __device__ __forceinline__ AlignRow load_align_row(const int32_t* __restrict__ p
   a.hi = (uint32_t)r[1];
   a.diff = r[2];
   a.W = r[3] & W_MASK;
+  a.unit = row_unit(r[3]);
   a.qs = r[4];
   a.H = r[5];
   a.rev = r[6];

@@ -249,7 +249,7 @@ struct TileLayout {
 // NTB: the block's __launch_bounds__, at least blockDim.x
 template <int R, int NTB>
 __global__ void __launch_bounds__(NTB)
-fill_tiled(const uint8_t* __restrict__ genome, int64_t glen,
+fill_tiled(const uint8_t* __restrict__ genome, int64_t plane,
            const uint8_t* __restrict__ readbuf, int64_t rlen,
            const int32_t* __restrict__ pk, const float* __restrict__ params,
            const int32_t* __restrict__ ymin, const int32_t* __restrict__ ymax,
@@ -273,6 +273,7 @@ fill_tiled(const uint8_t* __restrict__ genome, int64_t glen,
 
   const int b = blockIdx.x;
   const ngt::AlignRow a = ngt::load_align_row(pk, b);
+  const uint8_t* g = ngt::plane_base(genome, a.unit, plane);
   const Scores p{params[0], params[1], params[2], params[3], params[4],
                  params[5]};
   const int32_t* ymin_b = ymin + (int64_t)b * TpP;
@@ -298,7 +299,7 @@ fill_tiled(const uint8_t* __restrict__ genome, int64_t glen,
       const int64_t qp = (int64_t)a.qs + (a.rev ? a.H - 1 - j : j);
       qv[m] = ldg_u8(readbuf + (qp < 0 ? 0 : (qp >= rlen ? rlen - 1 : qp)));
       const int64_t gp = (int64_t)a.ds + (x0 - k - a.diff);   // column x0 - k
-      rv[m] = ldg_u8(genome + (gp < 0 ? 0 : (gp >= glen ? glen - 1 : gp)));
+      rv[m] = ldg_u8(g + (gp < 0 ? 0 : (gp >= plane ? plane - 1 : gp)));
     }
     const int t = min(tn + min(tid, K - 1), TpP - 1);
     ymv = ldg_u32(ymin_b + t);
@@ -484,7 +485,7 @@ fill_tiled(const uint8_t* __restrict__ genome, int64_t glen,
 // the last two wavefronts in shared memory or a global scratch slab, codes
 // gathered per cell, directions stored per cell.
 __global__ void __launch_bounds__(WIDE_THREADS)
-fill_wide(const uint8_t* __restrict__ genome, int64_t glen,
+fill_wide(const uint8_t* __restrict__ genome, int64_t plane,
           const uint8_t* __restrict__ readbuf, int64_t rlen,
           const int32_t* __restrict__ pk, const float* __restrict__ params,
           const int32_t* __restrict__ ymin, const int32_t* __restrict__ ymax,
@@ -496,6 +497,7 @@ fill_wide(const uint8_t* __restrict__ genome, int64_t glen,
 
   const int b = blockIdx.x;
   const ngt::AlignRow a = ngt::load_align_row(pk, b);
+  const uint8_t* g = ngt::plane_base(genome, a.unit, plane);
   const float mat = params[0], mis = params[1], go = params[2];
   const float ge = params[3], gemin = params[4], gdecay = params[5];
 
@@ -533,7 +535,7 @@ fill_wide(const uint8_t* __restrict__ genome, int64_t glen,
       int nd = ngt::STOP, nr = 0;
       if (l <= yx - ym) {
         const int y = ym + l, x = t - y;
-        const int rc = ngt::ref_code(genome, glen, a.ds, a.diff, a.hi, a.W, x);
+        const int rc = ngt::ref_code(g, plane, a.ds, a.diff, a.hi, a.W, x);
         const int qc = ngt::qry_code(readbuf, rlen, a.qs, a.H, a.rev, y);
         const float lf_s = S1[l + 1 + sh1];
         const int lf_dr = DR1[l + 1 + sh1];
@@ -596,7 +598,7 @@ int fill_r(int L) {
 }
 
 template <int R, int NTB>
-int launch_tiled(const void* genome, int64_t glen, const void* readbuf,
+int launch_tiled(const void* genome, int64_t plane, const void* readbuf,
                  int64_t rlen, const void* pk, const void* params,
                  const void* ymin, const void* ymax, int B, int TpP, int L,
                  int NT, void* dirs, void* best, void* by, void* bx,
@@ -609,7 +611,7 @@ int launch_tiled(const void* genome, int64_t glen, const void* readbuf,
     if (e != cudaSuccess) return (int)e;
   }
   fill_tiled<R, NTB><<<B, NT, (size_t)smem, stream>>>(
-      (const uint8_t*)genome, glen, (const uint8_t*)readbuf, rlen,
+      (const uint8_t*)genome, plane, (const uint8_t*)readbuf, rlen,
       (const int32_t*)pk, (const float*)params, (const int32_t*)ymin,
       (const int32_t*)ymax, TpP, L, (uint8_t*)dirs, (float*)best,
       (int32_t*)by, (int32_t*)bx);
@@ -628,10 +630,12 @@ extern "C" int64_t ngt_convex_fill_state_bytes(int L) {
 
 extern "C" int64_t ngt_convex_fill_smem_cap() { return 200 * 1024; }
 
+// genome: unit planes of `plane` bytes each (a flat genome: one plane, the
+// whole buffer), every row's unit below their count;
 // pk int32 [B, 12]; params f32 [6] (mat, mis, go, ge, gemin, gdecay);
 // ymin/ymax int32 [B, TpP]; dirs u8 [B, TpP, L]; best f32 [B]; by/bx int32 [B];
 // scratch: null, or B * state_bytes(L) bytes of global memory.
-extern "C" int ngt_convex_fill(const void* genome, int64_t glen,
+extern "C" int ngt_convex_fill(const void* genome, int64_t plane,
                                const void* readbuf, int64_t rlen, const void* pk,
                                const void* params, const void* ymin,
                                const void* ymax, int B, int TpP, int L,
@@ -646,7 +650,7 @@ extern "C" int ngt_convex_fill(const void* genome, int64_t glen,
     // the instantiation whose launch bound is NT rounded up to 128 threads
 #define NGT_TILED(R_, NTB_)                                                  \
   if (R == R_ && NT <= NTB_)                                                \
-  return launch_tiled<R_, NTB_>(genome, glen, readbuf, rlen, pk, params,    \
+  return launch_tiled<R_, NTB_>(genome, plane, readbuf, rlen, pk, params,   \
                                 ymin, ymax, B, TpP, L, NT, dirs, best, by,  \
                                 bx, st)
     NGT_TILED(2, 128);
@@ -672,7 +676,7 @@ extern "C" int ngt_convex_fill(const void* genome, int64_t glen,
     }
   }
   fill_wide<<<B, WIDE_THREADS, (size_t)smem, st>>>(
-      (const uint8_t*)genome, glen, (const uint8_t*)readbuf, rlen,
+      (const uint8_t*)genome, plane, (const uint8_t*)readbuf, rlen,
       (const int32_t*)pk, (const float*)params, (const int32_t*)ymin,
       (const int32_t*)ymax, TpP, L, (uint8_t*)dirs, (float*)best,
       (int32_t*)by, (int32_t*)bx, (uint8_t*)scratch);

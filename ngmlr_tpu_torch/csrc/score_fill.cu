@@ -30,7 +30,7 @@ namespace {
 
 template <int R>
 __global__ void score_fill_kernel(const uint8_t* __restrict__ genome,
-                                  int64_t glen,
+                                  int64_t plane,
                                   const uint8_t* __restrict__ readbuf,
                                   int64_t rlen, const int32_t* __restrict__ pk,
                                   int Rp, float* __restrict__ out) {
@@ -43,9 +43,10 @@ __global__ void score_fill_kernel(const uint8_t* __restrict__ genome,
   const uint32_t ds = (uint32_t)row[0], hi = (uint32_t)row[1];
   const int diff = row[2], W = row[3] & ngt::W_MASK;
   const int qs = row[4], qlen = row[5], rev = row[6];
+  const uint8_t* g = ngt::plane_base(genome, ngt::row_unit(row[3]), plane);
 
   for (int i = threadIdx.x; i < Rp; i += blockDim.x)
-    sref[i] = (uint8_t)ngt::ref_code(genome, glen, ds, diff, hi, W, i);
+    sref[i] = (uint8_t)ngt::ref_code(g, plane, ds, diff, hi, W, i);
   if (threadIdx.x < 32) edge[0][threadIdx.x] = 0;
 
   int q[R], h[R];
@@ -91,7 +92,7 @@ __global__ void score_fill_kernel(const uint8_t* __restrict__ genome,
 }
 
 template <int R>
-cudaError_t launch(const uint8_t* genome, int64_t glen, const uint8_t* readbuf,
+cudaError_t launch(const uint8_t* genome, int64_t plane, const uint8_t* readbuf,
                    int64_t rlen, const int32_t* pk, int P, int Rp, int Qp,
                    float* out, cudaStream_t stream) {
   const int threads = Qp / R;
@@ -101,15 +102,17 @@ cudaError_t launch(const uint8_t* genome, int64_t glen, const uint8_t* readbuf,
         score_fill_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, Rp);
     if (e != cudaSuccess) return e;
   }
-  score_fill_kernel<R><<<P, threads, Rp, stream>>>(genome, glen, readbuf, rlen,
+  score_fill_kernel<R><<<P, threads, Rp, stream>>>(genome, plane, readbuf, rlen,
                                                   pk, Rp, out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Rp: padded reference columns; Qp: padded query rows, a power of two >= 64.
-extern "C" int ngt_score_fill(const void* genome, int64_t glen,
+// genome: unit planes of `plane` bytes each (a flat genome: one plane, the
+// whole buffer), every row's unit below their count; Rp: padded reference
+// columns; Qp: padded query rows, a power of two >= 64.
+extern "C" int ngt_score_fill(const void* genome, int64_t plane,
                               const void* readbuf, int64_t rlen, const void* pk,
                               int P, int Rp, int Qp, void* out, void* stream) {
   if (P <= 0) return 0;
@@ -122,14 +125,14 @@ extern "C" int ngt_score_fill(const void* genome, int64_t glen,
   auto s = (cudaStream_t)stream;
   const int R = Qp <= 1024 ? 1 : Qp / 1024;
   switch (R) {
-    case 1: return (int)launch<1>(g, glen, rb, rlen, p, P, Rp, Qp, o, s);
-    case 2: return (int)launch<2>(g, glen, rb, rlen, p, P, Rp, Qp, o, s);
-    case 4: return (int)launch<4>(g, glen, rb, rlen, p, P, Rp, Qp, o, s);
-    case 8: return (int)launch<8>(g, glen, rb, rlen, p, P, Rp, Qp, o, s);
-    case 16: return (int)launch<16>(g, glen, rb, rlen, p, P, Rp, Qp, o, s);
-    case 32: return (int)launch<32>(g, glen, rb, rlen, p, P, Rp, Qp, o, s);
-    case 64: return (int)launch<64>(g, glen, rb, rlen, p, P, Rp, Qp, o, s);
-    case 128: return (int)launch<128>(g, glen, rb, rlen, p, P, Rp, Qp, o, s);
+    case 1: return (int)launch<1>(g, plane, rb, rlen, p, P, Rp, Qp, o, s);
+    case 2: return (int)launch<2>(g, plane, rb, rlen, p, P, Rp, Qp, o, s);
+    case 4: return (int)launch<4>(g, plane, rb, rlen, p, P, Rp, Qp, o, s);
+    case 8: return (int)launch<8>(g, plane, rb, rlen, p, P, Rp, Qp, o, s);
+    case 16: return (int)launch<16>(g, plane, rb, rlen, p, P, Rp, Qp, o, s);
+    case 32: return (int)launch<32>(g, plane, rb, rlen, p, P, Rp, Qp, o, s);
+    case 64: return (int)launch<64>(g, plane, rb, rlen, p, P, Rp, Qp, o, s);
+    case 128: return (int)launch<128>(g, plane, rb, rlen, p, P, Rp, Qp, o, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

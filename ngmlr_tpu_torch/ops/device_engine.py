@@ -23,8 +23,10 @@ exactly. With -t N every score and align wave runs over a mesh of devices
 (parallel/mesh.py): the genome and each read buffer are replicated on every
 device, each wave's padded blocks split into contiguous per-shard slices,
 and the results gathered back in problem order; each kernel computes one
-problem per block, so the bytes do not depend on the mesh. The multi-unit
-genome planes are not ported yet (ROADMAP item 6) and raise.
+problem per block, so the bytes do not depend on the mesh. A genome of
+more than one 2^31 slab (the TableUnit analog) lives on each device as a
+[U, planeP] stack of unit planes; a problem's unit rides in bits 28+ of its
+W column and the kernels read that unit's plane.
 """
 
 from dataclasses import dataclass
@@ -43,6 +45,7 @@ from .types import (STOP, DIAG, INS, DEL, XCODE, NCODE,  # noqa: F401
                     CORRIDOR_ANCHORS)
 
 MAX_SEQ_LEN = 100000  # ssw guard (StrippedSW.h:87)
+MAX_UNITS = 8         # genome planes a W column can name (bits 28-30)
 
 
 def _pow2(x: int, lo: int) -> int:
@@ -127,7 +130,7 @@ class RefDesc:
     ds + i - diff < hi) else 'x'. Produced by ReferenceGenome.decode_*_desc.
 
     `unit` names the genome plane of a multi-unit genome (> one 2^31
-    slab); only unit 0 exists in this port (ROADMAP item 6)."""
+    slab); ds and hi are then local to that plane."""
     ds: int
     diff: int
     hi: int
@@ -216,18 +219,29 @@ class DeviceContext:
         self.device = self.devices[0]            # the primary device
         self.n_devices = len(self.devices)
         self.mesh = self.devices if self.n_devices > 1 else None
-        if unit_spec is not None and int(unit_spec[0]) > 1:
-            raise NotImplementedError(
-                "a genome of %d units (> one 2^31 slab): the genome planes "
-                "are not ported yet (ROADMAP open item 1.6)"
-                % int(unit_spec[0]))
-        self.n_units = 1
+        self.n_units = 1 if unit_spec is None else int(unit_spec[0])
+        if self.n_units > MAX_UNITS:
+            # W | unit << 28 reaches the int32 sign bit at unit 8
+            raise ValueError(
+                "a genome of %d units: at most %d units (%d 2^%d-base slabs) "
+                "fit the unit bits of the W column"
+                % (self.n_units, MAX_UNITS, MAX_UNITS, int(unit_spec[1])))
         self.genome_len = int(len(genome_codes))
         # pad the device genome to a size class with N codes: gathers mask
         # by hi/valid and never read the padding as sequence
-        n = _size_class(self.genome_len + 8, 1 << 20)
-        buf = np.full(n, NCODE, dtype=np.uint8)
-        buf[: self.genome_len] = genome_codes
+        if self.n_units > 1:
+            # TableUnit analog: genome planes [U, planeP], plane u holding
+            # the plane_len codes from u << bits (its slab plus the halo)
+            _, bits, plane_len = unit_spec
+            planeP = _size_class(int(plane_len) + 8, 1 << 20)
+            buf = np.full((self.n_units, planeP), NCODE, dtype=np.uint8)
+            for u in range(self.n_units):
+                seg = genome_codes[u << bits: (u << bits) + plane_len]
+                buf[u, : len(seg)] = seg
+        else:
+            n = _size_class(self.genome_len + 8, 1 << 20)
+            buf = np.full(n, NCODE, dtype=np.uint8)
+            buf[: self.genome_len] = genome_codes
         # one replica per device
         self.genomes = {d: torch.from_numpy(buf).to(d)
                         for d in dict.fromkeys(self.devices)}
@@ -318,6 +332,17 @@ class DeviceContext:
                 off += n
         return out
 
+    def _check_units(self, pk: np.ndarray):
+        """Every row's unit (bits 28+ of its W column) must name a plane of
+        the genome: a flat genome has unit 0 only. Raises, never clamps."""
+        unit = (pk[:, 3].astype(np.int64) >> 28) & 0xF
+        bad = np.nonzero(unit >= self.n_units)[0]
+        if len(bad):
+            raise ValueError(
+                "row %d names genome unit %d, but the genome has %d unit%s"
+                % (bad[0], unit[bad[0]], self.n_units,
+                   "" if self.n_units == 1 else "s"))
+
     def _count(self, pk):
         """On a mesh, the shard's real problems (qlen > 0) counted on its
         device, as the reference's shard bodies psum them; None on one
@@ -371,11 +396,20 @@ class DeviceContext:
         if P == 0:
             return None
         rb = self._replicas(readbuf)
+        self._check_units(pk)
         W = (pk[:, 3] & ((1 << 28) - 1)).astype(np.int64)  # high bits: unit
         qlen = np.maximum(pk[:, 5].astype(np.int64), 1)
         # problems past the ssw maxSeqLen guard score -1 whatever the
         # kernel says (StrippedSW.h:87): they are not launched
         live = (W + 1 < MAX_SEQ_LEN) & (qlen + 1 < MAX_SEQ_LEN)
+        if self.mesh is not None:
+            # the reference's shards count every row with qlen > 0, the
+            # guarded ones too: count here those no shard is handed
+            guarded = int(np.count_nonzero(~live & (pk[:, 5] > 0)))
+            if guarded:
+                with self._stats_lock:
+                    self.stats["mesh_problems_psum"] = (
+                        self.stats.get("mesh_problems_psum", 0) + guarded)
         # small problems bucket at 64-granularity (the hot subread shape is
         # 306x256 -> 320x256); larger rare probes use pow2 to bound the
         # number of distinct shapes
@@ -523,6 +557,7 @@ class DeviceContext:
         if P == 0:
             return None
         rb = self._replicas(readbuf)
+        self._check_units(pk_all)
         t0 = time.perf_counter()
         pkf = pk_all.view(np.float32)
         W = (pk_all[:, 3] & ((1 << 28) - 1)).astype(np.int64)  # hi: unit

@@ -21,8 +21,11 @@ The alignment kernels take the packed int32 problem rows of the engine:
   align rows [B, 12]: the same seven, then corridor mode, ci, width,
                       k f32 bits, d f32 bits
 so they gather reference and query codes from the genome and the read
-buffer themselves. expand_votes takes the per-row slot tables of the device
-candidate search (seed/device_search.py).
+buffer themselves. Bits 28+ of W name the row's genome unit: the genome
+is one plane u8 [G] (unit 0) or a stack of unit planes u8 [U, planeP],
+and the kernels get the plane stride, genome.shape[-1]. expand_votes
+takes the per-row slot tables of the device candidate search
+(seed/device_search.py).
 """
 
 import threading
@@ -68,9 +71,12 @@ def _on_cuda(name, *tensors) -> bool:
 
 
 def _need(name, arg, t, dtype, ndim, cols=None):
-    if t.dtype != dtype or t.dim() != ndim:
-        raise TypeError("%s: %s must be %s with %d dims, got %s %s"
-                        % (name, arg, dtype, ndim, t.dtype, tuple(t.shape)))
+    """ndim: the number of dims, or a tuple of the numbers allowed."""
+    dims = ndim if isinstance(ndim, tuple) else (ndim,)
+    if t.dtype != dtype or t.dim() not in dims:
+        raise TypeError("%s: %s must be %s with %s dims, got %s %s"
+                        % (name, arg, dtype, " or ".join(map(str, dims)),
+                           t.dtype, tuple(t.shape)))
     if cols is not None and t.shape[-1] != cols:
         raise ValueError("%s: %s must have %d columns, got %s"
                          % (name, arg, cols, tuple(t.shape)))
@@ -113,14 +119,21 @@ def _f2i(v):
     return torch.where(torch.isnan(v), 0, out)
 
 
-def gather_ref(genome, ds, diff, hi, W, Wp: int):
-    """[B, Wp] reference window codes per the RefDesc rule: the genome code
-    at ds + i - diff when diff <= i < W and below hi, else XCODE."""
+def gather_ref(genome, ds, diff, hi, W, Wp: int, unit=None):
+    """[B, Wp] reference window codes per the RefDesc rule: the code at
+    ds + i - diff of the row's genome plane when diff <= i < W and below
+    hi, else XCODE. genome: u8 [G], one plane, or [U, planeP], the unit
+    planes; unit: each row's plane (None: plane 0). A position clamps to
+    its plane's last byte, as the reference's _gather_ref clamps it."""
+    plane = genome.shape[-1]
     i = torch.arange(Wp, device=genome.device)[None, :]
     rel = i - diff[:, None]
     pos = ds[:, None] + rel
     valid = (rel >= 0) & (i < W[:, None]) & (pos < hi[:, None])
-    codes = genome[pos.clamp(0, genome.numel() - 1)]
+    idx = pos.clamp(0, plane - 1)
+    if unit is not None:
+        idx = idx + unit[:, None] * plane
+    codes = genome.reshape(-1)[idx]
     return torch.where(valid, codes, XCODE)
 
 
@@ -150,12 +163,17 @@ def corridor_offs(mode, ci, k, d, y):
                     torch.where(m == CORRIDOR_ENDPOINTS, endpoints, anchors)))
 
 
+def _unit(pk):
+    """Each row's genome plane: bits 28+ of its W column."""
+    return _u32(pk[:, 3]) >> 28
+
+
 def _align_cols(pk):
     """Named int64 / f32 columns of align rows [B, 12]."""
     return dict(
         ds=_u32(pk[:, 0]), hi=_u32(pk[:, 1]), diff=pk[:, 2].long(),
-        W=(pk[:, 3] & W_MASK).long(), qs=pk[:, 4].long(), H=pk[:, 5].long(),
-        rev=pk[:, 6], mode=pk[:, 7], ci=pk[:, 8], width=pk[:, 9],
+        W=(pk[:, 3] & W_MASK).long(), unit=_unit(pk), qs=pk[:, 4].long(),
+        H=pk[:, 5].long(), rev=pk[:, 6], mode=pk[:, 7], ci=pk[:, 8], width=pk[:, 9],
         k=pk[:, 10].view(torch.float32), d=pk[:, 11].view(torch.float32))
 
 
@@ -165,25 +183,27 @@ def _align_cols(pk):
 
 def score_fill(genome, readbuf, pk, Rp: int, Qp: int):
     """Best ungapped local-segment score of every score row, over the padded
-    Rp x Qp bucket. genome/readbuf u8 [G]/[R]; pk int32 [P, 7]. Returns
-    f32 [P]."""
+    Rp x Qp bucket. genome u8 [G] or unit planes [U, planeP] (each row's
+    unit, bits 28+ of its W column, below U); readbuf u8 [R]; pk int32
+    [P, 7]. Returns f32 [P]."""
     name = "score_fill"
     _need(name, "pk", pk, torch.int32, 2, 7)
-    _need(name, "genome", genome, torch.uint8, 1)
+    _need(name, "genome", genome, torch.uint8, (1, 2))
     _need(name, "readbuf", readbuf, torch.uint8, 1)
     if not _on_cuda(name, genome, readbuf, pk):
         return score_fill_plain(genome, readbuf, pk, Rp, Qp)
     P = pk.shape[0]
     out = torch.empty(P, dtype=torch.float32, device=pk.device)
     _launch(name, pk.device, _lib().ngt_score_fill, genome.data_ptr(),
-            genome.numel(), readbuf.data_ptr(), readbuf.numel(),
+            genome.shape[-1], readbuf.data_ptr(), readbuf.numel(),
             pk.data_ptr(), P, Rp, Qp, out.data_ptr())
     return out
 
 
 def score_fill_plain(genome, readbuf, pk, Rp: int, Qp: int):
     ref = gather_ref(genome, _u32(pk[:, 0]), pk[:, 2].long(), _u32(pk[:, 1]),
-                     (pk[:, 3] & W_MASK).long(), Rp).to(torch.int32)
+                     (pk[:, 3] & W_MASK).long(), Rp, _unit(pk)
+                     ).to(torch.int32)
     q = gather_qry(readbuf, pk[:, 4].long(), pk[:, 5].long(), pk[:, 6],
                    Qp).to(torch.int32)
     q_ok = q < 4
@@ -257,6 +277,7 @@ def corridor_windows_plain(pk, TpP: int):
 
 def convex_fill(genome, readbuf, pk, params, ymin, ymax, L: int):
     """Banded convex-gap fill of every align row over its corridor windows.
+    genome u8 [G] or unit planes [U, planeP], as score_fill takes it.
     params f32 [6] = (mat, mis, go, ge, gemin, gdecay). Returns dirs u8
     [B, TpP, L] (rows past a problem's last non-empty wavefront are not
     written on the card), best f32 [B], by, bx int32 [B]."""
@@ -265,7 +286,7 @@ def convex_fill(genome, readbuf, pk, params, ymin, ymax, L: int):
     _need(name, "params", params, torch.float32, 1)
     _need(name, "ymin", ymin, torch.int32, 2)
     _need(name, "ymax", ymax, torch.int32, 2)
-    _need(name, "genome", genome, torch.uint8, 1)
+    _need(name, "genome", genome, torch.uint8, (1, 2))
     _need(name, "readbuf", readbuf, torch.uint8, 1)
     if params.numel() < 6 or ymin.shape != ymax.shape \
             or ymin.shape[0] != pk.shape[0]:
@@ -284,9 +305,10 @@ def convex_fill(genome, readbuf, pk, params, ymin, ymax, L: int):
     if state > lib.ngt_convex_fill_smem_cap():
         # ring buffers too wide for shared memory: one global slab per block
         scratch = torch.empty(B * state, dtype=torch.uint8, device=dev)
-    _launch(name, dev, lib.ngt_convex_fill, genome.data_ptr(), genome.numel(),
-            readbuf.data_ptr(), readbuf.numel(), pk.data_ptr(),
-            params.data_ptr(), ymin.data_ptr(), ymax.data_ptr(), B, TpP, L,
+    _launch(name, dev, lib.ngt_convex_fill, genome.data_ptr(),
+            genome.shape[-1], readbuf.data_ptr(), readbuf.numel(),
+            pk.data_ptr(), params.data_ptr(), ymin.data_ptr(),
+            ymax.data_ptr(), B, TpP, L,
             dirs.data_ptr(), best.data_ptr(), by.data_ptr(), bx.data_ptr(),
             None if scratch is None else scratch.data_ptr())
     return dirs, best, by, bx
@@ -304,7 +326,8 @@ def convex_fill_plain(genome, readbuf, pk, params, ymin, ymax, L: int):
     n_t = int((ymin < H[:, None]).sum(dim=1).max()) if B else 0
     Wn = max(int(c["W"].max()) if B else 0, 1)
     Hn = max(int(H.max()) if B else 0, 1)
-    ref = gather_ref(genome, c["ds"], c["diff"], c["hi"], c["W"], Wn)
+    ref = gather_ref(genome, c["ds"], c["diff"], c["hi"], c["W"], Wn,
+                     c["unit"])
     qry = gather_qry(readbuf, c["qs"], H, c["rev"], Hn)
     lanes = torch.arange(L, dtype=torch.int32, device=dev)[None, :]
     # the previous wavefront's (score, dir, run) as f32 planes with a zero

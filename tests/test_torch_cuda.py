@@ -21,7 +21,8 @@ from ngmlr_tpu_torch.ops import device_engine as tde  # noqa: E402
 from ngmlr_tpu_torch.ops import kernels as K  # noqa: E402
 from ngmlr_tpu_torch.ops.device_engine import _convex_kernel  # noqa: E402
 from chip_smoke import (BT_EDGES, CW_EDGES, FILL_EDGES,  # noqa: E402
-                        bt_edge_case, cw_edge_case, fill_edge_err)
+                        UNIT_PLANE, UNIT_PLANES, bt_edge_case, cw_edge_case,
+                        fill_edge_err, table_unit_files, unit_rows)
 
 pytestmark = pytest.mark.cuda
 
@@ -183,6 +184,90 @@ def test_convex_chain_kernels_match_plain(dev, Wp, Hp, L):
     packed, scalars = _convex_kernel(g, r, pkt, params, Wp=Wp, Hp=Hp, L=L)
     assert torch.equal(packed, got[0].reshape(-1))
     assert torch.equal(scalars[:, 6], hmax)
+
+
+def _unit_inputs(dev, seed):
+    rng = np.random.default_rng(seed)
+    planes = rng.integers(0, 5, (UNIT_PLANES, UNIT_PLANE)).astype(np.uint8)
+    readbuf = rng.integers(0, 5, 1 << 20).astype(np.uint8)
+    return rng, planes, readbuf
+
+
+def test_score_fill_on_unit_rows_matches_plain(dev):
+    """Score rows over five genome planes, their windows ending at, running
+    past and lying in the halo of their plane's end: the kernel reads each
+    row's plane as the plain version does."""
+    rng, planes, readbuf = _unit_inputs(dev, 61)
+    pk = np.ascontiguousarray(unit_rows(rng, planes, readbuf, 300, (306, 307),
+                                        (1, 2), (1,), H_max=256)[:, :7])
+    g, r, pkt = (torch.from_numpy(a).to(dev) for a in (planes, readbuf, pk))
+    n0 = K.launches["score_fill"]
+    got = K.score_fill(g, r, pkt, 320, 256)
+    assert K.launches["score_fill"] == n0 + 1
+    want = K.score_fill_plain(g, r, pkt, 320, 256)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert float(got.median()) >= 15
+
+
+@pytest.mark.parametrize("L", [256, 6144], ids=["tiled", "wide"])
+def test_convex_fill_on_unit_rows_matches_plain(dev, L):
+    """Align rows over five genome planes through the tiled (L = 256) and
+    the wide (L = 6144) fill, then the backtrack, against the plain
+    versions."""
+    rng, planes, readbuf = _unit_inputs(dev, 63 + L)
+    pk = unit_rows(rng, planes, readbuf, 10, (500, 1500),
+                   (100, 300) if L == 256 else (800, 1600),
+                   (1, 2, 3) if L == 256 else (0, 2, 3), H_max=2047)
+    g, r, pkt = (torch.from_numpy(a).to(dev) for a in (planes, readbuf, pk))
+    params = torch.tensor(PARAMS, dtype=torch.float32, device=dev)
+    ymin, ymax, _ = K.corridor_windows(pkt, 4096)
+    n0 = K.launches["convex_fill"]
+    dirs, best, by, bx = K.convex_fill(g, r, pkt, params, ymin, ymax, L)
+    assert K.launches["convex_fill"] == n0 + 1
+    w_dirs, w_best, w_by, w_bx = K.convex_fill_plain(g, r, pkt, params,
+                                                     ymin, ymax, L)
+    live = (ymin < pkt[:, 5:6])[:, :, None].expand(-1, -1, L)
+    assert torch.equal(dirs[live], w_dirs[live])
+    assert torch.equal(best.view(torch.int32), w_best.view(torch.int32))
+    assert torch.equal(by, w_by) and torch.equal(bx, w_bx)
+    got = K.convex_backtrack(dirs, ymin, pkt, bx, by)
+    want = K.convex_backtrack_plain(dirs, ymin, pkt, bx, by)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got[3].eq(K.DONE).sum()) >= 5
+
+
+def test_three_unit_pipeline_matches_flat_on_the_card(dev, tmp_path,
+                                                      monkeypatch):
+    """tests/test_table_units.py:69 on the card: at 2^22-base slabs its
+    10 Mbp genome is 3 units, mapped through the host search and the Python
+    assembly path, launching score_fill and the convex kernels and no
+    expand_votes; the SAM equals the flat run's."""
+    from ngmlr_tpu_torch.config import Config
+    from ngmlr_tpu_torch.pipeline.runner import Pipeline
+    ref_p, reads_p = table_unit_files(str(tmp_path))
+    monkeypatch.setenv("NGMLR_TPU_STRICT", "1")
+    sams = []
+    for bits in (None, "22"):
+        if bits:
+            monkeypatch.setenv("NGMLR_TPU_UNIT_SLAB_BITS", bits)
+        else:
+            monkeypatch.delenv("NGMLR_TPU_UNIT_SLAB_BITS", raising=False)
+        p = Pipeline(Config(), ref_p, use_cache=False, device=dev)
+        buf = io.BytesIO()
+        K.reset_launches()
+        st = p.run(reads_p, buf)
+        torch.cuda.synchronize()
+        assert st["mapped"] == 14
+        sams.append([l for l in buf.getvalue().split(b"\n")
+                     if not l.startswith(b"@PG")])
+    assert p.ref.n_units == 3 and p.ctx.genome.dim() == 2
+    assert p.native is None and p.dev_search is None
+    assert K.launches["expand_votes"] == 0
+    assert K.launches["score_fill"] == p.ctx.stats["score_launches"] > 0
+    assert K.launches["convex_fill"] == p.ctx.stats["align_launches"] > 0
+    assert sams[0] == sams[1]
 
 
 def _map_test2(device):

@@ -84,47 +84,63 @@ def test_make_mesh_expands_and_clamps(monkeypatch, capfd):
     assert make_mesh(None, "cuda") == [torch.device("cuda", 0)]
 
 
-@pytest.mark.parametrize("n_problems", [1, 37])
-def test_mesh_wave_matches_one_device_and_the_reference_mesh(n_problems):
-    """A score wave and an align wave over 4 shards equal one device's,
+@pytest.mark.parametrize("n_problems,n_mesh,guarded", [
+    pytest.param(1, 4, False, id="1"),
+    pytest.param(37, 4, False, id="37"),
+    pytest.param(10, 2, True, id="guarded-row")])
+def test_mesh_wave_matches_one_device_and_the_reference_mesh(n_problems,
+                                                             n_mesh, guarded):
+    """A score wave and an align wave over a mesh equal one device's,
     problem for problem, and the problem counts equal those of
-    ngmlr_tpu's 4-device mesh. One problem runs on one shard; 37 split
-    into contiguous shards, each its own launch."""
+    ngmlr_tpu's mesh of as many devices. One problem runs on one shard; 37
+    split into contiguous shards, each its own launch. In the guarded case
+    the last of ten score rows is past the MAX_SEQ_LEN guard: the port does
+    not launch it, the reference's shards count it, and so does the port's
+    mesh_problems_psum."""
     rng, genome, readbuf = _buffers(31)
-    spk = _score_rows(rng, n_problems, 306, 256)
+    spk = _score_rows(rng, n_problems - guarded, 306, 256)
+    if guarded:
+        spk = np.concatenate([spk, _score_rows(rng, 1, tde.MAX_SEQ_LEN, 256)])
     # corridors of one lane class and size bucket: one chunk per wave
     apk = _align_rows(rng, genome, readbuf, min(n_problems, 20), (150, 250),
                       (100, 200), (20, 60), (1, 2, 3), plant=(0, 5))
     params = tuple(float(p) for p in PARAMS)
+    mesh = ["cpu"] * n_mesh
     got = {}
-    for dev in ("cpu", MESH4):
+    for dev in ("cpu", mesh):
         ctx = tde.DeviceContext(genome, device=dev)
         rb = ctx.upload_reads(readbuf)
         assert len(rb.replicas) == 1          # the shards share the CPU
         scores = ctx.score_wave_np(spk)
+        score_psum = ctx.stats.get("mesh_problems_psum")
         res = ctx.align_finalize_pk(ctx.align_dispatch_pk(apk, params))
-        got[ctx.n_devices] = (scores, res, ctx.stats)
-    (s1, r1, st1), (s4, r4, st4) = got[1], got[4]
-    np.testing.assert_array_equal(s1, s4)
-    for a, b in zip(r1[:6], r4[:6]):
+        got[ctx.n_devices] = (scores, res, ctx.stats, score_psum)
+    (s1, r1, st1, _), (sm, rm, stm, psum_m) = got[1], got[n_mesh]
+    np.testing.assert_array_equal(s1, sm)
+    for a, b in zip(r1[:6], rm[:6]):
         np.testing.assert_array_equal(a, b)
-    for a, b in zip(r1[6], r4[6]):
+    for a, b in zip(r1[6], rm[6]):
         np.testing.assert_array_equal(a, b)
     assert "mesh_problems_psum" not in st1
     assert st1["score_launches"] == st1["score_waves"] == 1
     assert st1["align_launches"] == st1["align_waves"] == 1
-    # 37 score rows: 3 shards of 16 rows; 20 align rows: 3 shards of 8
-    n_shards = 1 if n_problems == 1 else 3
-    assert st4["score_launches"] == st4["align_launches"] == n_shards
-    assert st4["mesh_problems_psum"] == len(spk) + len(apk)
+    # 37 score rows: 3 shards of 16 rows; 20 align rows: 3 shards of 8;
+    # 9 launched score rows and 10 align rows over 2: 2 shards of 8
+    n_shards = {1: 1, 37: 3, 10: 2}[n_problems]
+    assert stm["score_launches"] == stm["align_launches"] == n_shards
+    assert psum_m == len(spk)
+    assert stm["mesh_problems_psum"] == len(spk) + len(apk)
 
-    jctx = jde.DeviceContext(genome, n_devices=4)
+    jctx = jde.DeviceContext(genome, n_devices=n_mesh)
     jctx.upload_reads(readbuf)
-    np.testing.assert_array_equal(jctx.score_wave_np(spk), s4)
+    np.testing.assert_array_equal(jctx.score_wave_np(spk), sm)
+    assert jctx.stats["mesh_problems_psum"] == psum_m
+    if guarded:
+        assert sm[-1] == -1.0 and (sm[:-1] >= 0).all()
     want = jctx.align_finalize_pk(jctx.align_dispatch_pk(apk, params))
-    for a, b in zip(want[:6], r4[:6]):
+    for a, b in zip(want[:6], rm[:6]):
         np.testing.assert_array_equal(a, b)
-    assert jctx.stats["mesh_problems_psum"] == st4["mesh_problems_psum"]
+    assert jctx.stats["mesh_problems_psum"] == stm["mesh_problems_psum"]
 
 
 def test_mesh_needs_a_replica_on_every_device():

@@ -127,10 +127,10 @@ def test_no_card_and_no_cpu_request_raises(monkeypatch):
 
 
 def test_unported_options_raise():
-    """Multi-unit genomes are not ported; asking for one raises instead of
-    running something else."""
+    """A genome of more than 8 units raises instead of running something
+    else: unit 8 would reach the sign bit of the W column."""
     codes = np.zeros(64, np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tde.DeviceContext(codes, unit_spec=(2, 31, 64), device="cpu")
+    with pytest.raises(ValueError, match="at most 8 units"):
+        tde.DeviceContext(codes, unit_spec=(9, 31, 64), device="cpu")
     assert runner._wave_depth(torch.device("cpu")) == 1
     assert runner._wave_depth(torch.device("cuda")) == 2
