@@ -47,7 +47,23 @@ Phases, each printed with its wall time:
      5 Mbp chromosomes, 14 reads) in 3 units, its SAM equal to its flat
      run's; (b) phase 4's 50 Mbp genome in 6 units and its 256 reads, the
      SAM equal to phase 4's; both under NGMLR_TPU_STRICT=1, launching no
-     expand_votes.
+     expand_votes;
+  8. --nosse and the oracle modules: (a) test_2 pacbio through the CLI on
+     the card with --nosse (the plain versions of the four alignment
+     kernels, on the card's tensors), its SAM equal to the golden and to
+     the kernels' run of the same command, and phase 4's genome with its
+     first NOSSE_READS reads mapped both ways, the SAMs equal (the plain
+     convex_fill is a Python loop of tensor steps a wavefront, hence the
+     cut), the --nosse runs launching none of the four and as many
+     expand_votes as the kernels' runs; (b) --stdout 6 --nosse on test_2,
+     the card's dump equal to the CPU's (each in a fresh process: the dump
+     numbers alignments from 0 in a process); (c) ops/convex.py's
+     run_batch on the card against ops/convex_ref.py's fill_matrix and
+     against run_batch on the CPU on the 12 problems of
+     tests/test_convex.py:52, align_banded through a context on the card
+     (the four kernels) against run_batch + the host backtrack on the 10
+     of :75, and ops/ungapped.py's score_batch on the card against
+     score_pair_numpy, with each part's seconds.
 With --profile DIR, torch.profiler traces the first mapping of phases 4
 and 5 (device time by kernel and the busy share; in phase 4 also the
 launch shapes of corridor_windows, convex_fill and convex_backtrack and
@@ -1031,10 +1047,12 @@ def check_launches(tag, launches, stats, mesh=False):
     score_fill per shard of each score wave, one of each convex kernel per
     shard of each align wave, one expand_votes per row-local device-search
     launch (none in a run with the host search). Off a mesh a wave is one
-    launch."""
-    want = {"score_fill": stats["score_launches"]}
+    launch. Under --nosse (the context's plain_kernels) the four alignment
+    kernels launch never: their plain versions run on the card."""
+    plain = stats.get("plain_kernels", 0)
+    want = {"score_fill": 0 if plain else stats["score_launches"]}
     for k in ("corridor_windows", "convex_fill", "convex_backtrack"):
-        want[k] = stats["align_launches"]
+        want[k] = 0 if plain else stats["align_launches"]
     want["expand_votes"] = stats["search_v2_launches"]
     check(launches == want, "%s: launches %s, but the engine recorded %s"
           % (tag, launches, want))
@@ -1677,8 +1695,10 @@ DUMP_DATA = {
     "test_4": ("test_4/reference.fasta.gz", "test_4/read.fa.gz")}
 SCALE_KEYS = ("score_waves", "score_launches", "align_waves",
               "align_launches", "search_v2_launches")
-# one CLI process of a multi-process run: cli.main, then the process's
-# kernel launches and the engine's counts on stderr
+# one CLI process (of a multi-process run, or a dump that must start from
+# a fresh process: --stdout 6 numbers its alignments from 0 in a process):
+# cli.main, then the process's kernel launches and the engine's counts on
+# stderr
 CLI_COUNTED = """
 import json, sys
 sys.path.insert(0, %r)
@@ -1689,7 +1709,7 @@ st = device_engine.current().stats
 sys.stderr.write("SMOKE_COUNTS %%s\\n" %% json.dumps(
     {"launches": K.launches, "stats": {k: st[k] for k in %r}}))
 sys.exit(rc)
-""" % (HERE, SCALE_KEYS)
+""" % (HERE, SCALE_KEYS + ("plain_kernels",))
 
 
 def _data_argv(name):
@@ -1708,7 +1728,9 @@ def cli_run(tag, argv, dev):
     buf = io.BytesIO()
     out = io.TextIOWrapper(buf, encoding="utf-8", newline="\n",
                            write_through=True)
-    old = [_env("NGMLR_TPU_STRICT", "1"), _env("NGMLR_TORCH_DEVICE", dev)]
+    # --nosse sets NGMLR_TPU_NO_PALLAS for the process: undone after
+    old = [_env("NGMLR_TPU_STRICT", "1"), _env("NGMLR_TORCH_DEVICE", dev),
+           _env("NGMLR_TPU_NO_PALLAS", None)]
     K.reset_launches()
     t0 = time.perf_counter()
     try:
@@ -1718,6 +1740,7 @@ def cli_run(tag, argv, dev):
     finally:
         _env("NGMLR_TPU_STRICT", old[0])
         _env("NGMLR_TORCH_DEVICE", old[1])
+        _env("NGMLR_TPU_NO_PALLAS", old[2])
     wall = time.perf_counter() - t0
     out.flush()
     check(rc == 0, "%s: the CLI returned %s" % (tag, rc))
@@ -1765,6 +1788,30 @@ def _golden(name):
         return f.read()
 
 
+def start_cli(argv, dev, stdout=subprocess.PIPE, **env):
+    """The port's CLI (CLI_COUNTED) in a process of its own on dev under
+    NGMLR_TPU_STRICT=1, with the extra environment env. Returns the
+    process; its counts come back through cli_counts."""
+    env = dict(os.environ, NGMLR_TORCH_DEVICE=dev, NGMLR_TPU_STRICT="1",
+               **env)
+    env.pop("NGMLR_TPU_NO_PALLAS", None)   # only the CLI's flag sets it
+    return subprocess.Popen([sys.executable, "-c", CLI_COUNTED] + argv,
+                            cwd=HERE, env=env, stdout=stdout,
+                            stderr=subprocess.PIPE)
+
+
+def cli_counts(tag, proc, err):
+    """Check a finished start_cli process: its exit code, and its launches
+    against its engine's counts. Returns the counts."""
+    err = err.decode(errors="replace")
+    check(proc.returncode == 0, "%s failed: %s" % (tag, err[-1500:]))
+    line = [l for l in err.splitlines() if l.startswith("SMOKE_COUNTS ")]
+    check(line, "%s reported no counts" % tag)
+    counts = json.loads(line[-1][len("SMOKE_COUNTS "):])
+    check_launches(tag, counts["launches"], counts["stats"])
+    return counts
+
+
 def start_two_processes(workdir, dev):
     """Two CLI processes on the card under one coordinator (gloo on a free
     localhost port), each mapping its round-robin half of test_2 by
@@ -1776,14 +1823,10 @@ def start_two_processes(workdir, dev):
     procs = []
     for pid in range(2):
         sam = os.path.join(workdir, "proc%d.sam" % pid)
-        env = dict(os.environ, NGMLR_TORCH_DEVICE=dev,
-                   NGMLR_TPU_STRICT="1",
-                   NGMLR_TPU_COORDINATOR="127.0.0.1:%d" % port,
-                   NGMLR_TPU_NUM_PROCS="2", NGMLR_TPU_PROC_ID=str(pid))
-        procs.append((subprocess.Popen(
-            [sys.executable, "-c", CLI_COUNTED] + _data_argv("test_2")
-            + ["-o", sam], cwd=HERE, env=env, stdout=subprocess.DEVNULL,
-            stderr=subprocess.PIPE), sam))
+        procs.append((start_cli(
+            _data_argv("test_2") + ["-o", sam], dev, subprocess.DEVNULL,
+            NGMLR_TPU_COORDINATOR="127.0.0.1:%d" % port,
+            NGMLR_TPU_NUM_PROCS="2", NGMLR_TPU_PROC_ID=str(pid)), sam))
     return procs
 
 
@@ -1791,16 +1834,8 @@ def finish_two_processes(procs, single, workdir):
     """Wait for the two processes (the caller kills them on any failure),
     check each one's launches against its engine's counts, and merge their
     SAMs: the merge must equal the single run."""
-    errs = [p.communicate(timeout=300)[1].decode(errors="replace")
-            for p, _ in procs]
-    for pid, ((p, _), err) in enumerate(zip(procs, errs)):
-        check(p.returncode == 0, "process %d of 2 failed: %s"
-              % (pid, err[-1500:]))
-        line = [l for l in err.splitlines() if l.startswith("SMOKE_COUNTS ")]
-        check(line, "process %d of 2 reported no counts" % pid)
-        counts = json.loads(line[-1][len("SMOKE_COUNTS "):])
-        check_launches("process %d of 2" % pid, counts["launches"],
-                       counts["stats"])
+    for pid, (p, _) in enumerate(procs):
+        cli_counts("process %d of 2" % pid, p, p.communicate(timeout=300)[1])
     merged = _merge_sams(os.path.join(workdir, "procs_merged.sam"),
                          [sam for _, sam in procs])
     check(_records(merged) == _records(single),
@@ -2076,6 +2111,401 @@ def phase_table_units(main_path, workdir):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 8: --nosse on the card and the oracles (ops/convex.py,
+# ops/ungapped.py, ops/convex_ref.py)
+# ---------------------------------------------------------------------------
+
+# (a) phase 4's genome mapped both ways with its first NOSSE_READS reads:
+# the plain convex_fill runs a Python loop of tensor steps a wavefront
+NOSSE_READS = 8
+# (c) the candidate scorer's hot shape: 306-base windows, 256-base subreads
+SCORE_PAIRS = 256
+
+
+def rand_seq(rng, n):
+    """tests/test_convex.py's _rand_seq."""
+    return bytes(rng.choice(list(b"ACGT"), size=n).astype(np.uint8))
+
+
+def mutate_seq(rng, seq, sub=0.05, ins=0.03, dele=0.03):
+    """tests/test_convex.py's _mutate."""
+    out = bytearray()
+    for c in seq:
+        r = rng.random()
+        if r < dele:
+            continue
+        if r < dele + ins:
+            out.append(rng.choice(list(b"ACGT")))
+        if r < dele + ins + sub:
+            out.append(rng.choice(list(b"ACGT")))
+        else:
+            out.append(c)
+    return bytes(out)
+
+
+def fill_cases():
+    """The 12 seeded band problems of tests/test_convex.py:52: (ref, qry,
+    per-row offsets, width)."""
+    rng = np.random.default_rng(11)
+    cases = []
+    for _ in range(12):
+        H = int(rng.integers(4, 60))
+        W = int(rng.integers(4, 80))
+        ref = rand_seq(rng, W)
+        qry = rand_seq(rng, H)
+        width = int(rng.integers(3, 25))
+        base = rng.integers(-5, 5)
+        offs = (np.arange(H) * float(rng.choice([0.5, 1.0, 1.7]))
+                ).astype(np.int64) + base
+        cases.append((ref, qry, offs, width))
+    return cases
+
+
+def align_cases():
+    """The 10 seeded problems of tests/test_convex.py:75: (ref, qry, linear
+    corridor width), the query a mutated copy of the middle of ref."""
+    rng = np.random.default_rng(123)
+    cases = []
+    for _ in range(10):
+        truth = rand_seq(rng, int(rng.integers(60, 400)))
+        qry = mutate_seq(rng, truth)
+        pad = int(rng.integers(5, 60))
+        ref = rand_seq(rng, pad) + truth + rand_seq(rng, pad)
+        cases.append((ref, qry, int(rng.choice([32, 64, 128]))))
+    return cases
+
+
+def oracle_views(ref, qry, device):
+    """tests/test_convex.py's _setup on `device`: a DeviceContext whose
+    genome is ref and whose read buffer is qry, made current. Returns
+    (reference window, query view)."""
+    from ngmlr_tpu_torch.align.aligner import RefWin
+    from ngmlr_tpu_torch.io.reads import Read, SeqView
+    from ngmlr_tpu_torch.io.reference import _CHAR2CODE
+    from ngmlr_tpu_torch.ops import device_engine as de
+
+    def codes(b):
+        return _CHAR2CODE[np.frombuffer(b, dtype=np.uint8)]
+    ctx = de.DeviceContext(codes(ref), device=device)
+    ctx.upload_reads(codes(qry))
+    de.set_current(ctx)
+    read = Read(0, b"r", qry, None)
+    read.buf_offset = 0
+    return (RefWin(de.RefDesc(0, 0, len(ref), len(ref)), ref),
+            SeqView(read, 0, len(qry), False))
+
+
+def fill_diffs(ref, qry, offs, width, device):
+    """run_batch on `device` against fill_matrix: the best score (to f32
+    rounding, as tests/test_convex.py:66 holds it), the best cell where the
+    score is positive, and every direction in the band. Returns (the
+    result, [what differs])."""
+    from ngmlr_tpu_torch.ops.convex import BandSpec, run_batch
+    from ngmlr_tpu_torch.ops.convex_ref import fill_matrix
+    bs, bx, by, dirs = fill_matrix(ref, qry, offs, width)
+    res = run_batch([BandSpec(ref, qry, offs, width)], device=device)[0]
+    diffs = []
+    if abs(res.score - bs) > 1e-6 * abs(bs):
+        diffs.append("score %r, fill_matrix %r" % (res.score, bs))
+    if bs > 0 and (res.best_x, res.best_y) != (bx, by):
+        diffs.append("best cell %s, fill_matrix %s"
+                     % ((res.best_x, res.best_y), (bx, by)))
+    for y in range(len(qry)):
+        for x in range(max(0, int(offs[y])),
+                       min(len(ref), int(offs[y]) + width)):
+            if res.dir_at(x, y) != dirs[y, x]:
+                diffs.append("direction at %s" % ((x, y),))
+    return res, diffs
+
+
+def align_diffs(ref, qry, corridor_width, device):
+    """tests/test_convex.py:75 on `device`: align_banded through the
+    current DeviceContext (the kernels on the card, their plain versions
+    on the CPU) against run_batch + the host backtrack + convert_cigar.
+    Returns [what differs]."""
+    from ngmlr_tpu_torch.align.aligner import (align_banded, corridor_linear,
+                                               materialize_offsets)
+    from ngmlr_tpu_torch.align.cigar import backtrack, convert_cigar
+    from ngmlr_tpu_torch.ops.convex import BandSpec, run_batch
+    ref_win, view = oracle_views(ref, qry, device)
+    c = corridor_linear(corridor_width)
+    a_dev = align_banded(ref_win, view, c, 2, 4)
+    offs = materialize_offsets(c, len(qry))
+    res = run_batch([BandSpec(ref, qry, offs, c.width)], device=device)[0]
+    bt = backtrack(res, offs, c.width, len(qry))
+    if bt is None or a_dev is None:
+        return [] if bt is None and a_dev is None else [
+            "engine %s, oracle %s" % (a_dev is not None, bt is not None)]
+    ops, ref_position, _ = bt
+    a_host, host_len = convert_cigar(ops, ref, ref_position, qry, 2, 4)
+    diffs = [k for k in ("cigar", "md", "nm", "qstart", "qend",
+                         "position_offset")
+             if getattr(a_dev, k) != getattr(a_host, k)]
+    if a_dev.score != res.score:
+        diffs.append("score")
+    if a_dev._final_cigar_length != host_len:
+        diffs.append("final cigar length")
+    if not np.array_equal(a_dev.nm_per_position, a_host.nm_per_position):
+        diffs.append("nm_per_position")
+    return diffs
+
+
+def ungapped_pairs():
+    """The pairs of tests/test_ungapped.py: its five fixed pairs, the 32
+    seeded pairs of test_batch_matches_numpy (seed 3; bytes of int64
+    codes, as that test makes them) and the embedded match (seed 4)."""
+    def seq(rng, n, alphabet=b"ACGT"):
+        return bytes(rng.choice(list(alphabet), size=n))
+    pairs = [(b"ACGTACGT", b"ACGT"), (b"AAAA", b"TTTT"),
+             (b"ACGTTTGCA", b"ACGTATGCA"), (b"ACNNGT", b"ACNNGT"),
+             (b"ACxxGT", b"ACGGGT")]
+    rng = np.random.default_rng(3)
+    for _ in range(32):
+        pairs.append((seq(rng, int(rng.integers(20, 306)), b"ACGTN"),
+                      seq(rng, int(rng.integers(10, 266)), b"ACGTN")))
+    rng = np.random.default_rng(4)
+    q = seq(rng, 100)
+    pairs.append((seq(rng, 80) + q + seq(rng, 80), q))
+    return pairs
+
+
+def score_pairs(rng, n=SCORE_PAIRS):
+    """n seeded pairs at the scorer's hot shape: 306-base reference windows
+    and 256-base subreads mutated from them, with N in both and 'x' (the
+    out-of-chromosome code) in the windows."""
+    pairs = []
+    for _ in range(n):
+        ref = bytearray(rand_seq(rng, 306))
+        qry = bytearray(mutate_seq(rng, bytes(ref[25:281]), 0.1)[:256])
+        for seq, chars in ((ref, b"Nx"), (qry, b"N")):
+            for i in rng.integers(0, len(seq), size=4):
+                seq[int(i)] = chars[int(rng.integers(0, len(chars)))]
+        pairs.append((bytes(ref), bytes(qry)))
+    return pairs
+
+
+def nosse_pair(tag, argv, dev, golden=None):
+    """argv through the port's CLI on dev, then again with --nosse:
+    the SAMs must be equal (@PG excluded: it holds the command line), and
+    equal to tests/golden/<golden> where one is named. The --nosse run
+    launches none of the four alignment kernels and as many expand_votes
+    as the kernels' run (the device search is not switched). Returns (its
+    numbers, the kernels' SAM)."""
+    from ngmlr_tpu_torch.ops import device_engine
+    from ngmlr_tpu_torch.ops import kernels as K
+    k_out, k_wall = cli_run(tag + ", kernels", argv, dev)
+    k_launches = dict(K.launches)
+    n_out, n_wall = cli_run(tag + ", --nosse", argv + ["--nosse"], dev)
+    n_launches = dict(K.launches)
+    st = device_engine.current().stats
+    rec = dict(kernels_s=k_wall, nosse_s=n_wall, kernels_launches=k_launches,
+               nosse_launches=n_launches, plain_kernels=st["plain_kernels"],
+               score_waves=st["score_waves"], align_waves=st["align_waves"],
+               sam_identical=_records(n_out) == _records(k_out))
+    if golden:
+        rec["golden_identical"] = _records(k_out) == _records(_golden(golden))
+        check(rec["golden_identical"], "%s: the kernels' SAM differs from "
+              "tests/golden/%s" % (tag, golden))
+    log("%s: %s" % (tag, json.dumps(rec)))
+    check(rec["sam_identical"], "%s: the --nosse SAM differs from the "
+          "kernels'" % tag)
+    check(st["plain_kernels"] == 1 and st["align_waves"] > 0,
+          "%s: the --nosse context ran no plain align wave" % tag)
+    check(all(k_launches[k] > 0 for k in KERNELS),
+          "%s: the kernels' run launches %s" % (tag, k_launches))
+    check(all(n_launches[k] == 0 for k in KERNELS[:4])
+          and n_launches["expand_votes"] == k_launches["expand_votes"],
+          "%s: --nosse launched %s, the kernels' run %s"
+          % (tag, n_launches, k_launches))
+    return rec, k_out
+
+
+DUMP6_ARGV = _data_argv("test_2") + ["--stdout", "6", "--nosse", "-o",
+                                     os.devnull]
+
+
+def oracle_checks(dev):
+    """Phase 8(c): the oracle modules on the card. run_batch on the 12
+    problems of tests/test_convex.py:52 equals fill_matrix and run_batch on
+    the CPU; align_banded through a context on the card (the four CUDA
+    kernels, each launched) equals run_batch on the card + the host
+    backtrack + convert_cigar on the 10 problems of :75; score_batch on the
+    card equals score_pair_numpy on tests/test_ungapped.py's pairs
+    (ungapped_pairs), on SCORE_PAIRS seeded hot-shape pairs and on a pair
+    past the maxSeqLen guard. Returns the parts' seconds and the oracles' device ms."""
+    import torch
+    from ngmlr_tpu_torch.ops import kernels as K
+    from ngmlr_tpu_torch.ops.convex import BandSpec, run_batch
+    from ngmlr_tpu_torch.ops.ungapped import (MAX_SEQ_LEN, nt_codes,
+                                              score_batch,
+                                              score_batch_kernel,
+                                              score_pair_numpy)
+    rec = {}
+    t0 = time.perf_counter()
+    n_cells = 0
+    for i, (ref, qry, offs, width) in enumerate(fill_cases()):
+        res, diffs = fill_diffs(ref, qry, offs, width, dev)
+        check(not diffs, "oracle fill %d on %s: %s" % (i, dev, diffs[:4]))
+        cpu = run_batch([BandSpec(ref, qry, offs, width)], device="cpu")[0]
+        check(np.array_equal(res.dirs, cpu.dirs)
+              and (res.score, res.best_x, res.best_y)
+              == (cpu.score, cpu.best_x, cpu.best_y),
+              "oracle fill %d: run_batch on the card differs from the CPU's"
+              % i)
+        n_cells += res.dirs.size * 4
+    rec["fill_s"] = time.perf_counter() - t0
+    log("phase 8(c) run_batch vs fill_matrix and the CPU, 12 problems "
+        "(%d padded cells): %.2f s" % (n_cells, rec["fill_s"]))
+
+    t0 = time.perf_counter()
+    old = _env("NGMLR_TPU_NO_PALLAS", None)
+    K.reset_launches()
+    try:
+        for i, case in enumerate(align_cases()):
+            diffs = align_diffs(*case, device=dev)
+            check(not diffs, "oracle align %d on %s: %s" % (i, dev, diffs))
+    finally:
+        _env("NGMLR_TPU_NO_PALLAS", old)
+    rec["engine_launches"] = dict(K.launches)
+    rec["engine_s"] = time.perf_counter() - t0
+    log("phase 8(c) align_banded on the card vs run_batch + host backtrack, "
+        "10 problems: %.2f s, launches %s" % (rec["engine_s"],
+                                              json.dumps(K.launches)))
+    check(all(K.launches[k] > 0 for k in KERNELS[1:4]),
+          "the engine half launched %s" % K.launches)
+
+    t0 = time.perf_counter()
+    # two batches, each padded to its own longest pair, as score_batch pads
+    batches = (ungapped_pairs(), score_pairs(np.random.default_rng(21))
+               + [(b"A" * MAX_SEQ_LEN, b"ACGT")])
+    got = np.concatenate([score_batch([r for r, _ in b], [q for _, q in b],
+                                      device=dev) for b in batches])
+    pairs = batches[0] + batches[1]
+    want = np.asarray([score_pair_numpy(r, q) for r, q in pairs], np.float32)
+    check(np.array_equal(got, want), "score_batch on the card differs from "
+          "score_pair_numpy at %s" % np.nonzero(got != want)[0][:8])
+    check(want[-1] == -1.0 and want[:5].tolist() == [4, 0, 7, 4, 4]
+          and want[37] == 100.0, "score_pair_numpy: %s" % want[:38])
+    rec["score_s"] = time.perf_counter() - t0
+    log("phase 8(c) score_batch on the card vs score_pair_numpy, %d pairs: "
+        "%.2f s" % (len(pairs), rec["score_s"]))
+
+    # the oracles' device time on the card, one call each, by CUDA events:
+    # score_batch_kernel at the hot shape's padding, and _wavefront_kernel
+    # at run_batch's smallest bucket
+    hot = score_pairs(np.random.default_rng(22))
+    rc = torch.full((len(hot), 512), 4, dtype=torch.uint8)
+    qc = torch.full((len(hot), 256), 4, dtype=torch.uint8)
+    for i, (r, q) in enumerate(hot):
+        rc[i, :len(r)] = torch.from_numpy(nt_codes(r))
+        qc[i, :len(q)] = torch.from_numpy(nt_codes(q))
+    rc, qc = rc.to(dev), qc.to(dev)
+    score_batch_kernel(rc, qc)
+    _, rec["score_batch_kernel_ms"] = timed_once(
+        lambda: score_batch_kernel(rc, qc))
+    from ngmlr_tpu_torch.ops.convex import _wavefront_kernel
+    specs = [BandSpec(r, q, o, w).prepare() for r, q, o, w in fill_cases()]
+    B, Tp, L = len(specs), 256, 128
+    args = [np.zeros((B, Tp), np.uint8), np.full((B, Tp), 255, np.uint8),
+            np.zeros((B, Tp), np.int32), np.full((B, Tp), -1, np.int32)]
+    for b, sp in enumerate(specs):
+        args[0][b, :len(sp.ref)] = np.frombuffer(sp.ref, np.uint8)
+        args[1][b, :len(sp.qry)] = np.frombuffer(sp.qry, np.uint8)
+        args[2][b, :sp.T], args[3][b, :sp.T] = sp.ymin, sp.ymax
+    args = [torch.from_numpy(a).to(dev) for a in args]
+    pvec = torch.tensor([2.0, -5.0, -5.0, -5.0, -1.0, 0.15], device=dev)
+    _wavefront_kernel(*args, pvec, L=L)
+    _, rec["wavefront_kernel_ms"] = timed_once(
+        lambda: _wavefront_kernel(*args, pvec, L=L))
+    rec["wavefront_kernel_shape"] = [B, Tp, L]
+    log("phase 8(c) oracle device ms: score_batch_kernel %d x 512 x 256 "
+        "%.3f, _wavefront_kernel B=%d Tp=%d L=%d %.3f"
+        % (len(hot), rec["score_batch_kernel_ms"], B, Tp, L,
+           rec["wavefront_kernel_ms"]))
+    return rec
+
+
+def phase_nosse(main_path, workdir, dev="cuda"):
+    """Phase 8: (a) test_2 pacbio through the CLI with --nosse on the card,
+    its SAM equal to the golden and to the kernels' run of the same
+    command; phase 4's genome with its first NOSSE_READS reads, the --nosse
+    SAM equal to the kernels', and the kernels' records of those reads
+    equal to phase 4's; (b) --stdout 6 --nosse on test_2 on the card equal
+    to the same dump on the CPU; (c) the oracle modules on the card."""
+    from ngmlr_tpu_torch.io.fastx import parse_fastx
+    os.makedirs(workdir, exist_ok=True)
+    rec = {}
+    # (b): --stdout 6 numbers alignments from 0 in a process, so each dump
+    # runs in a fresh one; the CPU's runs beside the card's work
+    cpu_dump = start_cli(DUMP6_ARGV, "cpu", OMP_NUM_THREADS="1")
+    card_p = None
+    try:
+        t0 = time.perf_counter()
+        rec["test_2"], _ = nosse_pair("nosse (a) test_2",
+                                      _data_argv("test_2"), dev, "test_2.sam")
+        log("phase 8(a) test_2 pacbio, kernels and --nosse: %.2f s"
+            % (time.perf_counter() - t0))
+
+        t0 = time.perf_counter()
+        ref_p, reads_p, main_sam = main_path
+        few_p = os.path.join(workdir, "reads_%d.fa" % NOSSE_READS)
+        reads = []
+        for r in parse_fastx(reads_p):
+            reads.append((r.name, r.seq))
+            if len(reads) == NOSSE_READS:
+                break
+        write_fasta(few_p, reads)
+        rec["genome"], k_out = nosse_pair(
+            "nosse (a) %.0f Mbp, %d reads" % (GENOME_MBP, NOSSE_READS),
+            ["-r", ref_p, "-q", few_p, "--no-progress"], dev)
+        mine, main = _per_read(k_out, False), _per_read(main_sam, False)
+        check(set(mine) == {n.decode() for n, _ in reads}
+              and all(mine[q] == main[q] for q in mine),
+              "nosse (a): the %d reads' records differ from phase 4's"
+              % NOSSE_READS)
+        log("phase 8(a) %.0f Mbp genome, %d of %d reads, kernels and "
+            "--nosse: %.2f s" % (GENOME_MBP, NOSSE_READS, N_READS,
+                                 time.perf_counter() - t0))
+
+        t0 = time.perf_counter()
+        card_p = start_cli(DUMP6_ARGV, dev)
+        card, err = card_p.communicate(timeout=900)
+        card_s = time.perf_counter() - t0
+        counts = cli_counts("nosse (b) --stdout 6 on the card", card_p, err)
+        cpu, err = cpu_dump.communicate(timeout=900)
+        cli_counts("nosse (b) --stdout 6 on the CPU", cpu_dump, err)
+        rec["dump"] = dict(card_s=card_s, lines=card.count(b"\n"),
+                           cpu_lines=cpu.count(b"\n"),
+                           identical=card == cpu,
+                           launches=counts["launches"])
+        log("nosse (b): %s" % json.dumps(rec["dump"]))
+        if not rec["dump"]["identical"]:
+            for name, dump in (("card", card), ("cpu", cpu)):
+                with open(os.path.join(workdir, "dump6_%s.txt" % name),
+                          "wb") as f:
+                    f.write(dump)
+        check(rec["dump"]["identical"] and rec["dump"]["lines"] > 30000,
+              "nosse (b): the card's --stdout 6 --nosse dump (%d lines) "
+              "differs from the CPU's (%d lines; both in %s)"
+              % (rec["dump"]["lines"], rec["dump"]["cpu_lines"], workdir))
+        check(counts["stats"]["plain_kernels"] == 1
+              and counts["launches"]["expand_votes"] > 0,
+              "nosse (b): the card's dump ran %s" % json.dumps(counts))
+        log("phase 8(b) --stdout 6 --nosse, card against CPU: %.2f s"
+            % (time.perf_counter() - t0))
+    finally:
+        for p in (cpu_dump, card_p):
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.communicate()
+    t0 = time.perf_counter()
+    rec["oracles"] = oracle_checks(dev)
+    log("phase 8(c) the oracles on the card: %.2f s"
+        % (time.perf_counter() - t0))
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -2134,6 +2564,12 @@ def main():
             main_path, os.path.join(HERE, "ngmlr_tpu_torch", "_build",
                                     "smoke_units"))
         log("phase 7 (table units): %.2f s" % (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        record["nosse"] = phase_nosse(
+            main_path, os.path.join(HERE, "ngmlr_tpu_torch", "_build",
+                                    "smoke_nosse"))
+        log("phase 8 (--nosse and the oracles): %.2f s"
+            % (time.perf_counter() - t0))
         # the launches of the one-chromosome run, the main path
         launches = record["mapping"]["launches"]
     except PhaseError as e:

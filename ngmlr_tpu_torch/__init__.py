@@ -3,11 +3,14 @@ aligner with the capabilities of ngmlr (philres/ngmlr).
 
 The host pipeline (FASTA encode, k-mer index, candidate search, cLIS, the
 native C++ assembly engine, CIGAR/MD, SAM) is carried over from ngmlr_tpu
-module for module. The device work runs in PyTorch on one CUDA card
-through four hand-written CUDA kernels (csrc/): candidate scoring, the
-corridor windows, the banded convex-gap fill and its backtrack. Each kernel
-has a plain PyTorch version that runs on the CPU, and the port's output is
-held byte for byte against ngmlr_tpu and the reference binary's goldens.
+module for module. The device work runs in PyTorch on CUDA cards through
+five hand-written CUDA kernels (csrc/): candidate scoring, the corridor
+windows, the banded convex-gap fill, its backtrack and the device
+candidate search's vote expansion. Each kernel has a plain PyTorch version
+that runs on the CPU (and, under --nosse, the four alignment kernels' on
+the card), and the port's output is held byte for byte against ngmlr_tpu
+and the reference binary's goldens. ops/convex.py, ops/ungapped.py and
+ops/convex_ref.py are the oracles the kernels are held against.
 """
 
 __version__ = "0.1.0"

@@ -54,9 +54,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--subread-aligner", type=int, default=0,
                    help="subread scoring method (0 = batched TPU kernel)")
     p.add_argument("--nosse", action="store_true",
-                   help="accepted for flag compatibility (the reference's "
-                        "scalar-aligner debug switch); the device is chosen "
-                        "by NGMLR_TORCH_DEVICE=cuda|cpu")
+                   help="the reference's scalar-aligner debug switch: map "
+                        "through the plain PyTorch versions of the score "
+                        "and align kernels, on the same device "
+                        "(NGMLR_TPU_NO_PALLAS=1), and with --stdout 6 dump "
+                        "each alignment's per-row corridor")
     p.add_argument("--skip-align", action="store_true",
                    help="skip the alignment step (debug)")
     p.add_argument("--version", action="version",
@@ -162,6 +164,10 @@ def main(argv=None):
     # the kernels' device: the CUDA kernels by default, their plain PyTorch
     # versions with NGMLR_TORCH_DEVICE=cpu; no silent fallback between them
     device = os.environ.get("NGMLR_TORCH_DEVICE", "cuda")
+    if args.nosse:
+        # read by DeviceContext at construction and by the aligner's
+        # --stdout 6 dump, as in the JAX package
+        os.environ["NGMLR_TPU_NO_PALLAS"] = "1"
     if args.subread_aligner not in (0, 1, 2, 3):
         sys.stderr.write(f"Invalid subread aligner: {args.subread_aligner}\n")
         return 1

@@ -27,6 +27,12 @@ problem per block, so the bytes do not depend on the mesh. A genome of
 more than one 2^31 slab (the TableUnit analog) lives on each device as a
 [U, planeP] stack of unit planes; a problem's unit rides in bits 28+ of its
 W column and the kernels read that unit's plane.
+
+With NGMLR_TPU_NO_PALLAS set when a context is built (the CLI's --nosse),
+its score and align waves call the plain PyTorch versions of the four
+alignment kernels directly, on the tensors of the device they run on: the
+JAX package's switch to its XLA scan twins
+(ngmlr_tpu/ops/device_engine.py:317-318, 484-485).
 """
 
 from dataclasses import dataclass
@@ -268,6 +274,10 @@ class DeviceContext:
                       # row-local device-search launches (one expand_votes
                       # kernel each on the card; seed/device_search.py)
                       "search_v2_launches": 0}
+        # --nosse: the plain versions of the four alignment kernels, on
+        # this context's devices, chosen once here and by nothing else
+        self.plain_kernels = bool(os.environ.get("NGMLR_TPU_NO_PALLAS"))
+        self.stats["plain_kernels"] = int(self.plain_kernels)
 
     def _upload(self, arr: np.ndarray, device=None):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(
@@ -438,11 +448,12 @@ class DeviceContext:
                 self.stats["cells_score_useful"] += int(
                     np.sum(W[idxs] * qlen[idxs]))
         pending = []
+        score_fill = (kernels.score_fill_plain if self.plain_kernels
+                      else kernels.score_fill)
         # ONE packed upload per device and wave; per-shard blocks are views
         for (d, _), pkd, (idxs, rp, qp) in zip(
                 blocks, self._upload_shards(blocks), metas):
-            scores = kernels.score_fill(self.genomes[d], rb.replicas[d], pkd,
-                                        rp, qp)
+            scores = score_fill(self.genomes[d], rb.replicas[d], pkd, rp, qp)
             pending.append((idxs, scores, self._count(pkd)))
         with self._stats_lock:
             self.stats["score_launches"] += len(pending)
@@ -658,7 +669,8 @@ class DeviceContext:
         for (d, _), blk, (L, idxs, Wp, Hp) in zip(blocks, blks, metas):
             packed_ops, scalars = _convex_kernel(
                 self.genomes[d], rb.replicas[d], blk,
-                self._params_vec(tuple(params), d), Wp=Wp, Hp=Hp, L=L)
+                self._params_vec(tuple(params), d), Wp=Wp, Hp=Hp, L=L,
+                plain=self.plain_kernels)
             # a conservative launch accepts its results unconditionally
             # (hmax <= width+3 is proven for monotone corridors; the
             # sentinel makes the retry recursion terminate even if that
@@ -814,16 +826,24 @@ class DeviceContext:
 # the fused convex kernel chain
 # ---------------------------------------------------------------------------
 
-def _convex_kernel(genome, readbuf, pk, params, Wp: int, Hp: int, L: int):
+def _convex_kernel(genome, readbuf, pk, params, Wp: int, Hp: int, L: int,
+                   plain: bool = False):
     """Fused banded convex-gap alignment of align rows pk int32 [B, 12]:
     corridor windows -> fill -> backtrack + 2-bit pack. params: f32 [6]
-    score params. Returns (packed_ops uint8 [B * (Wp+Hp)/4] flat, scalars
-    int32 [B, 7] = (score bits, best_x, best_y, stop_x, stop_y, ok, hmax))."""
+    score params. plain: call the kernels' plain versions (--nosse).
+    Returns (packed_ops uint8 [B * (Wp+Hp)/4] flat, scalars int32 [B, 7] =
+    (score bits, best_x, best_y, stop_x, stop_y, ok, hmax))."""
+    if plain:
+        windows, fill, walk = (kernels.corridor_windows_plain,
+                               kernels.convex_fill_plain,
+                               kernels.convex_backtrack_plain)
+    else:
+        windows, fill, walk = (kernels.corridor_windows, kernels.convex_fill,
+                               kernels.convex_backtrack)
     Tp = Wp + Hp
-    ymin, ymax, hmax = kernels.corridor_windows(pk, Tp)
-    dirs, best, by, bx = kernels.convex_fill(genome, readbuf, pk, params,
-                                             ymin, ymax, L)
-    packed, sx, sy, state = kernels.convex_backtrack(dirs, ymin, pk, bx, by)
+    ymin, ymax, hmax = windows(pk, Tp)
+    dirs, best, by, bx = fill(genome, readbuf, pk, params, ymin, ymax, L)
+    packed, sx, sy, state = walk(dirs, ymin, pk, bx, by)
     ok = (state == kernels.DONE).to(torch.int32)
     scalars = torch.stack([best.view(torch.int32), bx, by, sx, sy, ok, hmax],
                           dim=1)

@@ -1,7 +1,9 @@
 """The five CUDA kernels of the port against their plain PyTorch versions,
-and the device candidate search against the host search, on the card.
-Marked ``cuda``: every test skips where torch sees no card.
-The file imports neither jax nor the test conftest, so it also runs on a
+the device candidate search against the host search, --nosse against the
+kernels' run, the oracle modules (ops/convex.py, ops/ungapped.py,
+ops/convex_ref.py) against the CPU and the engine, and the SV case of
+tests/test_native_engine.py:118, on the card. Marked ``cuda``: every
+test skips where torch sees no card. The file imports neither jax nor the test conftest, so it also runs on a
 machine with a card and no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -533,3 +535,120 @@ def test_device_search_escape_paths_stay_on_the_card(dev, tmp_path,
 
     with pytest.raises(ValueError, match="longer than"):
         _search_on_card(dev, idx, [b"A" * (tds.SL + 1)], ref.codes)
+
+
+# ---------------------------------------------------------------------------
+# --nosse and the oracle modules on the card
+# ---------------------------------------------------------------------------
+
+ALIGN4 = ("score_fill", "corridor_windows", "convex_fill", "convex_backtrack")
+
+
+def _cli_test2(tmp_path, name, extra):
+    """test_2 pacbio through cli.main on the card; returns (SAM records,
+    the run's kernel launches, the context's stats)."""
+    from ngmlr_tpu_torch import cli
+    data = os.path.join(REPO, "tests", "data", "test_2")
+    out = str(tmp_path / name)
+    K.reset_launches()
+    rc = cli.main(["-r", os.path.join(data, "ref_chr21_20kb.fa"),
+                   "-q", os.path.join(data, "reads_100_2200bp.fa"),
+                   "-x", "pacbio", "--no-progress", "-o", out] + extra)
+    torch.cuda.synchronize()
+    assert rc == 0
+    with open(out, "rb") as f:
+        recs = [l for l in f.read().split(b"\n") if not l.startswith(b"@PG")]
+    return recs, dict(K.launches), dict(tde.current().stats)
+
+
+def test_nosse_test2_on_the_card(dev, tmp_path, monkeypatch):
+    """--nosse maps through the plain versions on the card's own tensors:
+    the kernels' SAM (the golden), no alignment kernel launched, the
+    device search's expand_votes as in the kernels' run."""
+    monkeypatch.setenv("NGMLR_TORCH_DEVICE", "cuda")
+    monkeypatch.setenv("NGMLR_TPU_STRICT", "1")
+    monkeypatch.delenv("NGMLR_TPU_NO_PALLAS", raising=False)
+    want, k_launches, k_stats = _cli_test2(tmp_path, "kernels.sam", [])
+    assert k_stats["plain_kernels"] == 0
+    assert all(k_launches[k] > 0 for k in k_launches), k_launches
+    # cli.main sets the variable for the process: undone after the test
+    monkeypatch.setenv("NGMLR_TPU_NO_PALLAS", "")
+    got, launches, stats = _cli_test2(tmp_path, "nosse.sam", ["--nosse"])
+    assert os.environ["NGMLR_TPU_NO_PALLAS"] == "1"
+    assert stats["plain_kernels"] == 1 and stats["align_waves"] > 0
+    assert got == want
+    with open(os.path.join(REPO, "tests", "golden", "test_2.sam"), "rb") as f:
+        assert got == [l for l in f.read().split(b"\n")
+                       if not l.startswith(b"@PG")]
+    assert {k: launches[k] for k in ALIGN4} == dict.fromkeys(ALIGN4, 0)
+    assert launches["expand_votes"] == k_launches["expand_votes"] > 0
+
+
+def test_run_batch_on_the_card_matches_cpu_and_the_scalar_oracle(dev):
+    """tests/test_convex.py:52's 12 problems: run_batch on the card equals
+    fill_matrix (score, best cell, every direction in the band) and
+    run_batch on the CPU bit for bit."""
+    from chip_smoke import fill_cases, fill_diffs
+    from ngmlr_tpu_torch.ops.convex import BandSpec, run_batch
+    for trial, (ref, qry, offs, width) in enumerate(fill_cases()):
+        res, diffs = fill_diffs(ref, qry, offs, width, dev)
+        assert diffs == [], trial
+        cpu = run_batch([BandSpec(ref, qry, offs, width)], device="cpu")[0]
+        assert np.array_equal(res.dirs, cpu.dirs), trial
+        assert (res.score, res.best_x, res.best_y) == (
+            cpu.score, cpu.best_x, cpu.best_y), trial
+
+
+def test_engine_matches_the_oracle_on_the_card(dev):
+    """tests/test_convex.py:75's 10 problems: align_banded through a
+    context on the card (the four CUDA kernels) equals run_batch on the
+    card + the host backtrack + convert_cigar."""
+    from chip_smoke import align_cases, align_diffs
+    K.reset_launches()
+    for trial, case in enumerate(align_cases()):
+        assert align_diffs(*case, device=dev) == [], trial
+    assert all(K.launches[k] > 0 for k in ALIGN4[1:]), K.launches
+    assert K.launches["score_fill"] == 0
+
+
+def test_score_batch_on_the_card(dev):
+    from chip_smoke import score_pairs
+    from ngmlr_tpu_torch.ops.ungapped import score_batch, score_pair_numpy
+    pairs = score_pairs(np.random.default_rng(12), 64)
+    got = score_batch([r for r, _ in pairs], [q for _, q in pairs],
+                      device=dev)
+    want = [score_pair_numpy(r, q) for r, q in pairs]
+    np.testing.assert_array_equal(got, np.asarray(want, np.float32))
+
+
+def test_native_engine_matches_python_sv(dev, tmp_path, monkeypatch):
+    """tests/test_native_engine.py:118 on the card (about 4 minutes on the
+    CPU): the first 12 reads of test_3, long noisy reads whose split and
+    realign paths run through the engine's waves, give the same bytes
+    through the native engine and the Python path."""
+    from ngmlr_tpu_torch.cli import build_parser, config_from_args
+    from ngmlr_tpu_torch.io.fastx import parse_fastx
+    from ngmlr_tpu_torch.pipeline.runner import Pipeline
+    data = os.path.join(REPO, "tests", "data", "test_3")
+    reads_p = str(tmp_path / "sv12.fa")
+    with open(reads_p, "wb") as f:
+        for i, rec in enumerate(parse_fastx(os.path.join(data,
+                                                         "read.fa.gz"))):
+            if i >= 12:
+                break
+            f.write(b">" + rec.name + b"\n" + rec.seq + b"\n")
+    argv = ["-r", os.path.join(data, "reference.fasta.gz"), "-q", reads_p]
+    outs = []
+    for native in ("1", "0"):
+        monkeypatch.setenv("NGMLR_TPU_NATIVE", native)
+        args = build_parser().parse_args(argv)
+        p = Pipeline(config_from_args(args, argv), args.reference,
+                     use_cache=False, device=dev)
+        assert (p.native is not None) == (native == "1")
+        buf = io.BytesIO()
+        p.run(reads_p, buf)
+        assert p.ctx.stats.get("native_failed", 0) == 0
+        outs.append([l for l in buf.getvalue().split(b"\n")
+                     if not l.startswith(b"@PG")])
+    assert outs[0] == outs[1]
+    assert len(outs[0]) > 12
