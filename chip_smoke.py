@@ -13,7 +13,10 @@ Phases, each printed with its wall time:
      library call's times, and the bound worked out from this run's inputs;
      then the four alignment kernels on rows spread over the planes of a
      genome of several units (windows at, past and before each plane's end;
-     the fill's tiled and wide lane classes), bit for bit;
+     the fill's tiled and wide lane classes), and on rows past 2^31 of a
+     flat genome of 2^31 + 2^26 bytes (windows ending at and running past
+     its last byte), bit for bit; expand_votes also on slot tables whose
+     position bases have bit 31 set;
   3. the goldens: the nine checks of scripts/check_goldens.sh (test_2
      pacbio and ont, test_4 and the other six) mapped through the port's
      Pipeline on the card with the default gate (the device candidate
@@ -63,7 +66,17 @@ Phases, each printed with its wall time:
      tests/test_convex.py:52, align_banded through a context on the card
      (the four kernels) against run_batch + the host backtrack on the 10
      of :75, and ops/ungapped.py's score_batch on the card against
-     score_pair_numpy, with each part's seconds.
+     score_pair_numpy, with each part's seconds;
+  9. past 2^31: phase 4's genome and reads behind one all-N gap chromosome
+     of GAP_LEN bases, so the chromosome starts at 2,147,550,184 (past
+     2^31, congruent to its phase-4 start modulo 2^16; about 2.2 GB of
+     codes on the card; the gap emits no k-mer, so the index is phase 4's
+     shifted), mapped with the device search and again with the host
+     search on the same Pipeline: the SAMs equal, the SAM body (@SQ lines
+     aside) equal to phase 4's, every row handed to the four alignment
+     kernels at ds >= 2^31 (recorded by stand-ins for their wrappers), the
+     first batch's candidates equal to the host search_batch, with its
+     setup seconds and peak device memory.
 With --profile DIR, torch.profiler traces the first mapping of phases 4
 and 5 (device time by kernel and the busy share; in phase 4 also the
 launch shapes of corridor_windows, convex_fill and convex_backtrack and
@@ -72,14 +85,15 @@ wavefront). Then one JSON line
 listing every kernel, the card's line from nvidia-smi, and the final line
 {"ok": true, "device": {...}}.
 
-Every mapping run (each golden, each mapping of phases 4 to 7; a process
-of phase 6's two-process run reports its own) sets the launch counters to
-0 just before it drives the pipeline and reads them just after; each run's
+Every mapping run (each golden, each mapping of phases 4 to 7 and 9; a
+process of phase 6's two-process run reports its own) sets the launch
+counters to 0 just before it drives the pipeline and reads them just
+after; each run's
 counts must equal the launches its own engine recorded (one score_fill per
 shard of each score wave, one launch of each convex kernel per shard of
 each align wave, a shard per wave off a mesh, one expand_votes per
 row-local device-search launch, none with the host search), and the first
-mappings of phases 4 and 5 must launch all five. On the mesh,
+mappings of phases 4, 5 and 9 must launch all five. On the mesh,
 mesh_problems_psum must equal the real problems handed to the waves,
 counted on the host before the split.
 The kernels line carries the counts of phase 4's first mapping, the
@@ -376,6 +390,55 @@ def unit_rows(rng, planes, readbuf, B, Wr, widths, modes, H_max=None,
         ci, width, cf = corridor(mode, W, H, int(rng.integers(*widths)))
         pku[b, 0], pku[b, 1] = ds, hi
         pk[b, 2:10] = (0, W | (u << 28), qs, H, b & 1, mode, ci, width)
+        pkf[b, 10:12] = cf
+        qs += H
+    return pk
+
+
+# phase 2's rows past 2^31: a flat genome of HIGH_G bytes whose last
+# HIGH_SPAN bytes (from HIGH_G - HIGH_SPAN, past 2^31) hold numpy-seeded
+# codes and the rest N codes
+HIGH_G = (1 << 31) + (1 << 26)
+HIGH_SPAN = 1 << 26
+HIGH_KINDS = ("end", "past-end", "inside")
+
+
+def high_rows(rng, top, lo, readbuf, B, Wr, widths, modes, H_max=None,
+              q0=0):
+    """Align rows int32 [B, 12] over a flat genome whose last len(top)
+    bytes, from lo, are top (the genome ends at lo + len(top)); ds and hi
+    are absolute, so with lo past 2^31 both pass it. By kind, cycling: end,
+    a window that ends at the genome's last byte (row 0) or 1-64 bases
+    before it; past-end, one that starts 1-64 bases before the end, so it
+    runs past it (a position there reads the last byte); inside, one
+    anywhere in top. Each query is a PacBio-like mutated copy of its window
+    (as the kernels read it), at most H_max long, written into readbuf from
+    q0 (reverse-complemented on odd rows). The first 7 columns are score
+    rows."""
+    n = len(top)
+    pk = np.zeros((B, 12), np.int32)
+    pku, pkf = pk.view(np.uint32), pk.view(np.float32)
+    qs = q0
+    for b in range(B):
+        kind = HIGH_KINDS[b % len(HIGH_KINDS)]
+        W = int(rng.integers(*Wr))
+        if kind == "end":
+            hi = n - (0 if b == 0 else int(rng.integers(1, 65)))
+            ds = hi - W
+        elif kind == "past-end":
+            ds = n - int(rng.integers(1, 65))
+            hi = ds + W
+        else:
+            ds = int(rng.integers(0, n - W))
+            hi = ds + W
+        window = top[np.minimum(np.arange(ds, ds + W), n - 1)]
+        q = np.frombuffer(mutate_codes(rng, window), np.uint8)[:H_max]
+        H = len(q)
+        readbuf[qs:qs + H] = np.where(q < 4, q ^ 1, q)[::-1] if b & 1 else q
+        mode = int(modes[b % len(modes)])
+        ci, width, cf = corridor(mode, W, H, int(rng.integers(*widths)))
+        pku[b, 0], pku[b, 1] = lo + ds, lo + hi
+        pk[b, 2:10] = (0, W, qs, H, b & 1, mode, ci, width)
         pkf[b, 10:12] = cf
         qs += H
     return pk
@@ -826,8 +889,9 @@ def phase_kernels(rng, dev="cuda"):
     rec["convex_fill"]["max_abs_err"] = fill_err
     rec["convex_backtrack"]["max_abs_err"] = bt_err
     rec["expand_votes"] = phase_expand_votes(rng, dev)
-    for name, e in unit_kernel_errs(dev).items():
-        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], e)
+    for errs in (unit_kernel_errs(dev), high_kernel_errs(dev)):
+        for name, e in errs.items():
+            rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], e)
     return rec
 
 
@@ -892,6 +956,75 @@ def unit_kernel_errs(dev):
     return errs
 
 
+def high_kernel_errs(dev):
+    """The four alignment kernels against their plain versions on rows past
+    2^31 of a flat genome of HIGH_G bytes (high_rows: windows ending at and
+    running past its last byte, and inside its seeded top): score_fill at
+    the hot 320 x 256 bucket, then corridor_windows, convex_fill and
+    convex_backtrack at a tiled and a wide lane class of the fill. Returns
+    {kernel: max_abs_err}."""
+    import torch
+    from ngmlr_tpu_torch.ops import kernels as K
+    rng = np.random.default_rng(231)
+    lo = HIGH_G - HIGH_SPAN
+    top = rng.integers(0, 5, HIGH_SPAN).astype(np.uint8)
+    readbuf_np = rng.integers(0, 5, 1 << 20).astype(np.uint8)
+    spk_np = high_rows(rng, top, lo, readbuf_np, 600, (306, 307), (1, 2),
+                       (1,), H_max=256)[:, :7]
+    shapes = [(tag, Wp, Hp, L, high_rows(rng, top, lo, readbuf_np, 15,
+                                         (600, 1800), widths, modes,
+                                         H_max=Hp - 1, q0=q0))
+              for tag, Wp, Hp, L, widths, modes, q0 in (
+                  ("tiled", 2048, 2048, 256, (100, 300), (1, 2, 3), 200_000),
+                  ("wide", 2048, 2048, 6144, (800, 1600), (0, 2, 3),
+                   600_000))]
+    genome = torch.full((HIGH_G,), 4, dtype=torch.uint8, device=dev)
+    genome[lo:] = torch.from_numpy(top).to(dev)
+    readbuf = torch.from_numpy(readbuf_np).to(dev)
+    params = torch.tensor([2.0, -5.0, -5.0, -5.0, -1.0, 0.15],
+                          dtype=torch.float32, device=dev)
+    spk = torch.from_numpy(np.ascontiguousarray(spk_np)).to(dev)
+    got = K.score_fill(genome, readbuf, spk, 320, 256)
+    errs = {"score_fill": max_abs_err(
+        [(got, K.score_fill_plain(genome, readbuf, spk, 320, 256))])}
+    ds = spk_np[:, 0].view(np.uint32)
+    log("past 2^31: score_fill P=%d, ds %d-%d, on a genome of %d B: "
+        "max_abs_err=%g, median score %g"
+        % (len(spk_np), int(ds.min()), int(ds.max()), HIGH_G,
+           errs["score_fill"], float(got.median())))
+    errs.update(corridor_windows=0.0, convex_fill=0.0, convex_backtrack=0.0)
+    for tag, Wp, Hp, L, apk_np in shapes:
+        apk = torch.from_numpy(apk_np).to(dev)
+        TpP = Wp + Hp
+        win = K.corridor_windows(apk, TpP)
+        e_cw = max_abs_err(zip(win, K.corridor_windows_plain(apk, TpP)))
+        ymin, ymax, hmax = win
+        got = K.convex_fill(genome, readbuf, apk, params, ymin, ymax, L)
+        want = K.convex_fill_plain(genome, readbuf, apk, params, ymin, ymax,
+                                   L)
+        live = (ymin < apk[:, 5:6])[:, :, None].expand(-1, -1, L)
+        e_fill = max_abs_err([(got[1], want[1]), (got[2], want[2]),
+                              (got[3], want[3]),
+                              (got[0][live], want[0][live])])
+        dirs, best, by, bx = got
+        bt = K.convex_backtrack(dirs, ymin, apk, bx, by)
+        e_bt = max_abs_err(zip(bt, K.convex_backtrack_plain(dirs, ymin, apk,
+                                                            bx, by)))
+        for k, e in (("corridor_windows", e_cw), ("convex_fill", e_fill),
+                     ("convex_backtrack", e_bt)):
+            errs[k] = max(errs[k], e)
+        log("past 2^31: convex %s B=%d Wp=%d Hp=%d L=%d, ds from %d: "
+            "windows, fill, backtrack max_abs_err = %g, %g, %g; ok=%d/%d, "
+            "max hmax %d"
+            % (tag, apk.shape[0], Wp, Hp, L,
+               int(apk_np[:, 0].view(np.uint32).min()), e_cw, e_fill, e_bt,
+               int(bt[3].eq(K.DONE).sum()), apk.shape[0], int(hmax.max())))
+        del got, want, bt, dirs
+    del genome
+    torch.cuda.empty_cache()
+    return errs
+
+
 def fill_edge_err(name, dev):
     """(max_abs_err, live wavefront rows) of convex_fill against its plain
     version on one FILL_EDGES case, over best, by, bx and every direction
@@ -913,12 +1046,14 @@ def fill_edge_err(name, dev):
     return e, int(live_t.sum())
 
 
-def slot_tables(rng, B, L, n_positions, ragged=False):
+def slot_tables(rng, B, L, n_positions, ragged=False, base_lo=0):
     """Device-search v2 slot tables of B rows with up to L votes each, as
     _search_kernel_v2 builds them: cum2 [B, SL2], d2tp / ct2p [B, SL2 + 1]
     int32. Votes fall on random slots, between 60% and all of L a row; the
     ragged case also has zero-vote rows, a row with exactly L votes, and
-    rows whose votes all sit in one slot."""
+    rows whose votes all sit in one slot. Slot position bases are drawn
+    from [base_lo, base_lo + n_positions), as uint32 bit patterns (from
+    2^31 they have bit 31 set)."""
     from ngmlr_tpu_torch.seed.device_search import SL
     SL2 = 2 * SL
     nv = rng.integers(L * 3 // 5, L + 1, B)
@@ -932,11 +1067,12 @@ def slot_tables(rng, B, L, n_positions, ragged=False):
     keep = np.arange(L)[None, :] < nv[:, None]
     flat = (np.arange(B)[:, None] * SL2 + slots)[keep]
     c2 = np.bincount(flat, minlength=B * SL2).reshape(B, SL2).astype(np.int32)
-    base2 = rng.integers(0, n_positions, (B, SL2)).astype(np.int32)
+    base2 = rng.integers(base_lo, base_lo + n_positions, (B, SL2))
     ct2 = rng.integers(-300, 300, (B, SL2)).astype(np.int32)
     cum2 = np.cumsum(c2, axis=1, dtype=np.int32)
     zero = np.zeros((B, 1), np.int32)
-    d2tp = np.concatenate([base2 - (cum2 - c2), zero], axis=1)
+    d2t = ((base2 - (cum2 - c2)) & 0xFFFFFFFF).astype(np.uint32)
+    d2tp = np.concatenate([d2t.view(np.int32), zero], axis=1)
     ct2p = np.concatenate([ct2, zero], axis=1)
     return cum2, d2tp, ct2p
 
@@ -945,18 +1081,21 @@ def phase_expand_votes(rng, dev):
     """expand_votes against its plain version (integers: exact) at the
     launch classes that 9 kb reads land in on a 250 Mbp genome, (B, L) =
     (4096, 768), and on a 50 Mbp one, (8192, 512), the largest vote class
-    (128, 32768) and a small ragged case; timed at the first, beside one
+    (128, 32768), a small ragged case and the first class again with slot
+    position bases that have bit 31 set; timed at the first, beside one
     torch.searchsorted + two gathers (the library yardstick, checked for
     equality, used nowhere in the port)."""
     import torch
     from ngmlr_tpu_torch.ops import kernels as K
     err, out = 0.0, None
-    for tag, B, L, ragged in (("main", 4096, 768, False),
-                              ("50 Mbp", 8192, 512, False),
-                              ("L_V2_MAX", 128, 32768, False),
-                              ("ragged", 16, 512, True)):
+    for tag, B, L, ragged, base_lo in (
+            ("main", 4096, 768, False, 0),
+            ("50 Mbp", 8192, 512, False, 0),
+            ("L_V2_MAX", 128, 32768, False, 0),
+            ("ragged", 16, 512, True, 0),
+            ("bit 31", 4096, 768, False, 1 << 31)):
         t = [torch.from_numpy(x).to(dev)
-             for x in slot_tables(rng, B, L, 83_000_000, ragged)]
+             for x in slot_tables(rng, B, L, 83_000_000, ragged, base_lo)]
         got = K.expand_votes(*t, L)
         want, plain_ms = timed_once(lambda: K.expand_votes_plain(*t, L))
         e = max_abs_err(zip(got, want))
@@ -2506,6 +2645,159 @@ def phase_nosse(main_path, workdir, dev="cuda"):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 9: past 2^31 (phase 4's genome behind an all-N gap chromosome)
+# ---------------------------------------------------------------------------
+
+# the gap chromosome's length: even, and GAP_LEN + 1000 a multiple of 2^16
+# above 2^31, so phase 4's chromosome starts at 1000 + GAP_LEN + 1000 =
+# 2,147,550,184, past 2^31 and congruent to its phase-4 start (1000) modulo
+# 2^16: bins and decode parity shift uniformly. An all-N chromosome emits
+# no k-mer, so the index is phase 4's, shifted
+GAP_LEN = (1 << 31) + (1 << 16) - 1000
+GAP_LINE = 1 << 20
+HIGH_WRAPPERS = ("score_fill", "corridor_windows", "convex_fill",
+                 "convex_backtrack")
+
+
+def write_gap_reference(path, ref_p):
+    """FASTA of one all-N chromosome of GAP_LEN bases ("gap", lines of
+    GAP_LINE bases), then the records of ref_p."""
+    line = b"N" * GAP_LINE + b"\n"
+    with open(path, "wb") as f:
+        f.write(b">gap\n")
+        for _ in range(GAP_LEN // GAP_LINE):
+            f.write(line)
+        f.write(b"N" * (GAP_LEN % GAP_LINE) + b"\n")
+        with open(ref_p, "rb") as src:
+            while True:
+                chunk = src.read(1 << 24)
+                if not chunk:
+                    break
+                f.write(chunk)
+
+
+@contextlib.contextmanager
+def row_reach():
+    """Stand in for the four alignment wrappers of ngmlr_tpu_torch.ops.
+    kernels, recording for each call, on the device, the rows it was handed
+    that name a window (hi > 0: the engine's padding and rows in a spacer
+    carry hi = 0), how many of them start at 2^31 or above, and their
+    least ds; then call the wrapper. Yields {wrapper: [(rows, rows past
+    2^31, least ds) tensors]}, read once the run is over."""
+    import torch
+    from ngmlr_tpu_torch.ops import kernels as K
+    seen = {n: [] for n in HIGH_WRAPPERS}
+    orig = {n: getattr(K, n) for n in HIGH_WRAPPERS}
+
+    def note(name, pk):
+        ds = pk[:, 0].long() & 0xFFFFFFFF
+        real = (pk[:, 1].long() & 0xFFFFFFFF) > 0
+        seen[name].append((real.sum(), (real & (ds >= 1 << 31)).sum(),
+                           torch.where(real, ds, 1 << 32).min()))
+
+    def wrap(name, pk_arg):
+        def f(*a):
+            note(name, a[pk_arg])
+            return orig[name](*a)
+        return f
+    # the position of the rows argument in each wrapper's signature
+    for name, i in (("score_fill", 2), ("corridor_windows", 0),
+                    ("convex_fill", 2), ("convex_backtrack", 2)):
+        setattr(K, name, wrap(name, i))
+    try:
+        yield seen
+    finally:
+        for n, f in orig.items():
+            setattr(K, n, f)
+
+
+def _body(sam):
+    """The SAM without its @SQ and @PG lines."""
+    return [l for l in sam.split(b"\n")
+            if not l.startswith((b"@SQ", b"@PG"))]
+
+
+def phase_high_genome(main_path, workdir):
+    """Phase 9: phase 4's genome and reads behind one all-N gap chromosome,
+    so every window and index position of the real chromosome lies past
+    2^31. Its reads map with the default gate (the device search), then
+    with the host search on the same Pipeline: the two SAMs equal, and the
+    SAM body (@SQ lines aside) equal to phase 4's; every kernel launched,
+    the launches equal to the waves, and every row handed to the four
+    alignment kernels starting at 2^31 or above; the first batch's
+    candidates equal to the host search_batch; mapped and placed shares
+    as phase 4's."""
+    import torch
+    ref_p, reads_p, main_sam = main_path
+    os.makedirs(workdir, exist_ok=True)
+    ref9 = os.path.join(workdir, "ref_gap.fa")
+    t0 = time.perf_counter()
+    write_gap_reference(ref9, ref_p)
+    log("past 2^31: wrote %s (a %d-base gap chromosome, then phase 4's) in "
+        "%.2f s" % (ref9, GAP_LEN, time.perf_counter() - t0))
+    origin = {}
+    with open(reads_p, "rb") as f:
+        for line in f:
+            if line.startswith(b">"):
+                name = line[1:].split()[0]
+                origin[name] = int(name.rsplit(b"_", 1)[1])
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        p, t_setup = _pipeline(ref9, reads_p)
+        check(p.dev_search is not None, "the gate left the device search off")
+        start = int(p.ref.ref_start[1])
+        check(start == 1000 + GAP_LEN + 1000 and start > 1 << 31,
+              "past 2^31: the chromosome starts at %d" % start)
+        resident = {"genome": p.ctx.genome.nbytes,
+                    "bucket_pairs": p.dev_search.bucket_pairs.nbytes,
+                    "positions": p.dev_search.positions.nbytes}
+        pos_min = int(p.index.positions.min())
+        log("past 2^31: setup %.2f s, chromosome start %d, least index "
+            "position %d, resident on the card %s"
+            % (t_setup, start, pos_min, json.dumps(resident)))
+        check(pos_min >= start, "past 2^31: an index position below the "
+              "chromosome (%d)" % pos_min)
+        with row_reach() as seen:
+            out, t_run, launches = _run_on(p, reads_p)
+        summary = mapping_summary("past 2^31", GENOME_MBP, p, out, origin,
+                                  t_setup, t_run, launches, None)
+        for name in KERNELS:
+            check(launches[name] > 0,
+                  "kernel %s was not launched past 2^31" % name)
+        reach = {}
+        for name, calls in seen.items():
+            rows = sum(int(r) for r, _, _ in calls)
+            high = sum(int(h) for _, h, _ in calls)
+            least = min((int(m) for r, _, m in calls if int(r)), default=None)
+            reach[name] = dict(calls=len(calls), rows=rows,
+                               rows_past_2_31=high, least_ds=least)
+            check(rows > 0 and high == rows,
+                  "past 2^31: %s was handed %d rows, %d of them past 2^31 "
+                  "(least ds %s)" % (name, rows, high, least))
+        summary["rows"] = reach
+        summary["resident_bytes"] = resident
+        summary["chromosome_start"] = start
+        summary["least_index_position"] = pos_min
+        log("past 2^31: rows handed to the alignment kernels %s"
+            % json.dumps(reach))
+        same = _body(out) == _body(main_sam)
+        summary["sam_body_equal_to_phase_4"] = same
+        check(same, "past 2^31: the SAM body differs from phase 4's")
+        summary["host_search"] = other_search_run("past 2^31", p, reads_p,
+                                                  out)
+        summary["first_batch"] = check_first_batch("past 2^31", p, reads_p)
+        log("past 2^31: setup %.2f s, map %.3f s (%.1f reads/s), peak "
+            "device memory %d B, SAM body equal to phase 4's"
+            % (t_setup, t_run, summary["reads_per_s"],
+               summary["max_memory_allocated"]))
+        del p
+    finally:
+        os.remove(ref9)
+        torch.cuda.empty_cache()
+    return summary
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -2570,6 +2862,11 @@ def main():
                                     "smoke_nosse"))
         log("phase 8 (--nosse and the oracles): %.2f s"
             % (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        record["high_genome"] = phase_high_genome(
+            main_path, os.path.join(HERE, "ngmlr_tpu_torch", "_build",
+                                    "smoke_high"))
+        log("phase 9 (past 2^31): %.2f s" % (time.perf_counter() - t0))
         # the launches of the one-chromosome run, the main path
         launches = record["mapping"]["launches"]
     except PhaseError as e:

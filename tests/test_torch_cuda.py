@@ -212,6 +212,17 @@ def test_score_fill_on_unit_rows_matches_plain(dev):
     assert float(got.median()) >= 15
 
 
+def test_kernels_past_2_31_match_plain(dev):
+    """The four alignment kernels on rows past 2^31 of a flat genome of
+    2^31 + 2^26 bytes (windows ending at and running past its last byte),
+    bit for bit against their plain versions (chip_smoke.py phase 2)."""
+    from chip_smoke import high_kernel_errs
+    errs = high_kernel_errs(dev)
+    assert sorted(errs) == ["convex_backtrack", "convex_fill",
+                            "corridor_windows", "score_fill"]
+    assert all(e == 0 for e in errs.values()), errs
+
+
 @pytest.mark.parametrize("L", [256, 6144], ids=["tiled", "wide"])
 def test_convex_fill_on_unit_rows_matches_plain(dev, L):
     """Align rows over five genome planes through the tiled (L = 256) and

@@ -87,6 +87,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "scripts", "torch_human_scale.py")
 
 
 def test_port_imports_neither_jax_nor_the_reference():
