@@ -15,8 +15,12 @@ Phases, each printed with its wall time:
      genome of several units (windows at, past and before each plane's end;
      the fill's tiled and wide lane classes), and on rows past 2^31 of a
      flat genome of 2^31 + 2^26 bytes (windows ending at and running past
-     its last byte), bit for bit; expand_votes also on slot tables whose
-     position bases have bit 31 set;
+     its last byte), and on rows over three planes of the real 2^31 slab
+     (a [3, 3,221,225,472] u8 tensor on the card, plane 2 past 2^32 of it;
+     windows across each slab's end and at and past each plane's end, at
+     the main-path shapes, timed, and the wide lane class), bit for bit;
+     expand_votes also on slot tables whose position bases have bit 31
+     set;
   3. the goldens: the nine checks of scripts/check_goldens.sh (test_2
      pacbio and ont, test_4 and the other six) mapped through the port's
      Pipeline on the card with the default gate (the device candidate
@@ -76,7 +80,16 @@ Phases, each printed with its wall time:
      aside) equal to phase 4's, every row handed to the four alignment
      kernels at ds >= 2^31 (recorded by stand-ins for their wrappers), the
      first batch's candidates equal to the host search_batch, with its
-     setup seconds and peak device memory.
+     setup seconds and peak device memory;
+ 10. past 2^32: phase 4's genome and reads behind one all-N gap chromosome
+     of GAP_LEN_32 bases, so the chromosome starts at 4,295,033,832 and
+     the ~4.35 Gbp genome is three units of the real 2^31 slab (9.66 GB of
+     planes on the card; the chromosome in unit 2); mapped as the
+     reference maps a multi-unit genome (host search, Python assembly
+     path) under NGMLR_TPU_STRICT=1: the index int64 and none of its
+     positions below the chromosome, every row handed to the four
+     alignment kernels naming unit 2, the SAM body equal to phase 4's,
+     with its setup seconds and peak device memory.
 With --profile DIR, torch.profiler traces the first mapping of phases 4
 and 5 (device time by kernel and the busy share; in phase 4 also the
 launch shapes of corridor_windows, convex_fill and convex_backtrack and
@@ -85,7 +98,7 @@ wavefront). Then one JSON line
 listing every kernel, the card's line from nvidia-smi, and the final line
 {"ok": true, "device": {...}}.
 
-Every mapping run (each golden, each mapping of phases 4 to 7 and 9; a
+Every mapping run (each golden, each mapping of phases 4 to 7, 9 and 10; a
 process of phase 6's two-process run reports its own) sets the launch
 counters to 0 just before it drives the pipeline and reads them just
 after; each run's
@@ -265,6 +278,10 @@ def max_abs_err(pairs):
 
 # ---------------------------------------------------------------------------
 # phase 2 inputs (numpy seeds)
+
+# the score parameters of the kernels' comparisons
+PARAMS = (2.0, -5.0, -5.0, -5.0, -1.0, 0.15)
+
 # ---------------------------------------------------------------------------
 
 def score_rows(rng, G, R, P):
@@ -352,7 +369,7 @@ UNIT_KINDS = ("end", "past-end", "halo")
 
 
 def unit_rows(rng, planes, readbuf, B, Wr, widths, modes, H_max=None,
-              q0=0, plane_len=None):
+              q0=0, plane_len=None, halo=None):
     """Align rows int32 [B, 12] over the planes of a unit genome u8
     [U, planeP], each row's unit (spread over every plane) in bits 28+ of
     W, ds and hi local to its plane. By kind, cycling: end, a window that
@@ -360,10 +377,10 @@ def unit_rows(rng, planes, readbuf, B, Wr, widths, modes, H_max=None,
     whole length); past-end, one that starts 1-64 bases before it, so its
     window runs past that end (past the plane itself, a position reads the
     plane's last byte); halo, one in the plane's last quarter (the slab's
-    halo). Each query is a PacBio-like mutated copy of its window
-    (as the kernels read it), at most H_max long, written into readbuf from
-    q0 (reverse-complemented on odd rows). The first 7 columns are score
-    rows."""
+    halo), or with halo = (lo, hi) one starting in [lo, hi). Each query is
+    a PacBio-like mutated copy of its window (as the kernels read it), at
+    most H_max long, written into readbuf from q0 (reverse-complemented on
+    odd rows). The first 7 columns are score rows."""
     U, planeP = planes.shape
     end = planeP if plane_len is None else plane_len
     pk = np.zeros((B, 12), np.int32)
@@ -380,7 +397,7 @@ def unit_rows(rng, planes, readbuf, B, Wr, widths, modes, H_max=None,
             ds = end - int(rng.integers(1, 65))
             hi = ds + W
         else:
-            ds = int(rng.integers(end * 3 // 4, end - W))
+            ds = int(rng.integers(*(halo or (end * 3 // 4, end - W))))
             hi = ds + W
         window = planes[u, np.minimum(np.arange(ds, ds + W), planeP - 1)]
         q = np.frombuffer(mutate_codes(rng, window), np.uint8)[:H_max]
@@ -401,6 +418,47 @@ def unit_rows(rng, planes, readbuf, B, Wr, widths, modes, H_max=None,
 HIGH_G = (1 << 31) + (1 << 26)
 HIGH_SPAN = 1 << 26
 HIGH_KINDS = ("end", "past-end", "inside")
+
+# phase 2's real-slab planes: REAL_UNITS planes of the default 2^31-base
+# slab and its 2^24-base halo, each of the size DeviceContext gives it
+# (3,221,225,472 B; plane 2 starts 6,442,450,944 B into the tensor), N
+# codes but for numpy-seeded codes from REAL_SEEDED_FROM up to REAL_SEEDED_TO
+# (the end of the slab and the whole halo; N from the plane length on).
+# unit_rows' halo windows start in REAL_HALO_DS, so they cross the slab's end
+REAL_UNITS = 3
+REAL_SLAB = 1 << 31
+REAL_PLANE_LEN = REAL_SLAB + (1 << 24)
+REAL_SEEDED_FROM = REAL_SLAB - (1 << 20)
+REAL_SEEDED_TO = REAL_PLANE_LEN + (1 << 16)
+REAL_HALO_DS = (REAL_SLAB - 12_000, REAL_SLAB + 4_000)
+
+
+class SeededPlanes:
+    """The real-slab planes' seeded bytes on the host: unit_rows reads
+    shape and planes[u, positions] (positions in [REAL_SEEDED_FROM,
+    REAL_SEEDED_TO)), and to(dev) makes the [REAL_UNITS, planeP] tensor on
+    the card, N codes elsewhere."""
+
+    def __init__(self, rng, planeP):
+        self.shape = (REAL_UNITS, planeP)
+        self.top = np.full((REAL_UNITS, REAL_SEEDED_TO - REAL_SEEDED_FROM), 4,
+                           np.uint8)
+        n = REAL_PLANE_LEN - REAL_SEEDED_FROM
+        self.top[:, :n] = rng.integers(0, 5, (REAL_UNITS, n))
+
+    def __getitem__(self, key):
+        u, pos = key
+        pos = np.asarray(pos) - REAL_SEEDED_FROM
+        check(pos.min() >= 0 and pos.max() < self.top.shape[1],
+              "a real-slab window outside the seeded bytes")
+        return self.top[u, pos]
+
+    def to(self, dev):
+        import torch
+        planes = torch.full(self.shape, 4, dtype=torch.uint8, device=dev)
+        planes[:, REAL_SEEDED_FROM:REAL_SEEDED_TO] = \
+            torch.from_numpy(self.top).to(dev)
+        return planes
 
 
 def high_rows(rng, top, lo, readbuf, B, Wr, widths, modes, H_max=None,
@@ -718,8 +776,7 @@ def phase_kernels(rng, dev="cuda"):
                          (0, 1), (200, 400), (2, 3), plant=True)
     genome = torch.from_numpy(genome_np).to(dev)
     readbuf = torch.from_numpy(readbuf_np).to(dev)
-    params = torch.tensor([2.0, -5.0, -5.0, -5.0, -1.0, 0.15],
-                          dtype=torch.float32, device=dev)
+    params = torch.tensor(PARAMS, dtype=torch.float32, device=dev)
     rec = {}
     log("tolerance: 0 (every output equal to its plain version; f32 compared "
         "as bit patterns)")
@@ -889,112 +946,47 @@ def phase_kernels(rng, dev="cuda"):
     rec["convex_fill"]["max_abs_err"] = fill_err
     rec["convex_backtrack"]["max_abs_err"] = bt_err
     rec["expand_votes"] = phase_expand_votes(rng, dev)
-    for errs in (unit_kernel_errs(dev), high_kernel_errs(dev)):
+    real_errs, real_ms = real_slab_errs(dev)
+    for errs in (unit_kernel_errs(dev), high_kernel_errs(dev), real_errs):
         for name, e in errs.items():
             rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], e)
+    for name, ms in real_ms.items():
+        rec[name]["real_slab_ms"] = ms
     return rec
 
 
-def unit_kernel_errs(dev):
-    """The four alignment kernels against their plain versions on rows of
-    a genome of UNIT_PLANES unit planes (unit_rows: windows at and past each
-    plane's end and in its halo): score_fill at the hot 320 x 256 bucket,
-    then corridor_windows, convex_fill and convex_backtrack at a tiled and
-    a wide lane class of the fill. Returns {kernel: max_abs_err}."""
+def score_err(tag, genome, readbuf, spk_np, timed=False):
+    """score_fill against its plain version on score rows spk_np at the hot
+    320 x 256 bucket. Returns (max_abs_err, kernel ms or None; timed: CUDA
+    events over 20 launches)."""
     import torch
     from ngmlr_tpu_torch.ops import kernels as K
-    rng = np.random.default_rng(70)
-    planes_np = rng.integers(0, 5, (UNIT_PLANES, UNIT_PLANE)).astype(np.uint8)
-    readbuf_np = rng.integers(0, 5, 1 << 20).astype(np.uint8)
-    spk_np = unit_rows(rng, planes_np, readbuf_np, 600, (306, 307), (1, 2),
-                       (1,), H_max=256)[:, :7]
-    shapes = [(tag, Wp, Hp, L, unit_rows(rng, planes_np, readbuf_np, 15,
-                                         (600, 1800), widths, modes,
-                                         H_max=Hp - 1, q0=q0))
-              for tag, Wp, Hp, L, widths, modes, q0 in (
-                  ("tiled", 2048, 2048, 256, (100, 300), (1, 2, 3), 200_000),
-                  ("wide", 2048, 2048, 6144, (800, 1600), (0, 2, 3),
-                   600_000))]
-    planes = torch.from_numpy(planes_np).to(dev)
-    readbuf = torch.from_numpy(readbuf_np).to(dev)
-    params = torch.tensor([2.0, -5.0, -5.0, -5.0, -1.0, 0.15],
-                          dtype=torch.float32, device=dev)
-    spk = torch.from_numpy(np.ascontiguousarray(spk_np)).to(dev)
-    got = K.score_fill(planes, readbuf, spk, 320, 256)
-    errs = {"score_fill": max_abs_err(
-        [(got, K.score_fill_plain(planes, readbuf, spk, 320, 256))])}
-    log("units: score_fill P=%d over %d planes of %d B: max_abs_err=%g, "
-        "median score %g" % (len(spk_np), UNIT_PLANES, UNIT_PLANE,
-                             errs["score_fill"], float(got.median())))
-    errs.update(corridor_windows=0.0, convex_fill=0.0, convex_backtrack=0.0)
-    for tag, Wp, Hp, L, apk_np in shapes:
-        apk = torch.from_numpy(apk_np).to(dev)
-        TpP = Wp + Hp
-        win = K.corridor_windows(apk, TpP)
-        e_cw = max_abs_err(zip(win, K.corridor_windows_plain(apk, TpP)))
-        ymin, ymax, hmax = win
-        got = K.convex_fill(planes, readbuf, apk, params, ymin, ymax, L)
-        want = K.convex_fill_plain(planes, readbuf, apk, params, ymin, ymax,
-                                   L)
-        live = (ymin < apk[:, 5:6])[:, :, None].expand(-1, -1, L)
-        e_fill = max_abs_err([(got[1], want[1]), (got[2], want[2]),
-                              (got[3], want[3]),
-                              (got[0][live], want[0][live])])
-        dirs, best, by, bx = got
-        bt = K.convex_backtrack(dirs, ymin, apk, bx, by)
-        e_bt = max_abs_err(zip(bt, K.convex_backtrack_plain(dirs, ymin, apk,
-                                                            bx, by)))
-        for k, e in (("corridor_windows", e_cw), ("convex_fill", e_fill),
-                     ("convex_backtrack", e_bt)):
-            errs[k] = max(errs[k], e)
-        log("units: convex %s B=%d Wp=%d Hp=%d L=%d: windows, fill, "
-            "backtrack max_abs_err = %g, %g, %g; ok=%d/%d, max hmax %d"
-            % (tag, apk.shape[0], Wp, Hp, L, e_cw, e_fill, e_bt,
-               int(bt[3].eq(K.DONE).sum()), apk.shape[0], int(hmax.max())))
-        del got, want, bt, dirs
-        torch.cuda.empty_cache()
-    return errs
-
-
-def high_kernel_errs(dev):
-    """The four alignment kernels against their plain versions on rows past
-    2^31 of a flat genome of HIGH_G bytes (high_rows: windows ending at and
-    running past its last byte, and inside its seeded top): score_fill at
-    the hot 320 x 256 bucket, then corridor_windows, convex_fill and
-    convex_backtrack at a tiled and a wide lane class of the fill. Returns
-    {kernel: max_abs_err}."""
-    import torch
-    from ngmlr_tpu_torch.ops import kernels as K
-    rng = np.random.default_rng(231)
-    lo = HIGH_G - HIGH_SPAN
-    top = rng.integers(0, 5, HIGH_SPAN).astype(np.uint8)
-    readbuf_np = rng.integers(0, 5, 1 << 20).astype(np.uint8)
-    spk_np = high_rows(rng, top, lo, readbuf_np, 600, (306, 307), (1, 2),
-                       (1,), H_max=256)[:, :7]
-    shapes = [(tag, Wp, Hp, L, high_rows(rng, top, lo, readbuf_np, 15,
-                                         (600, 1800), widths, modes,
-                                         H_max=Hp - 1, q0=q0))
-              for tag, Wp, Hp, L, widths, modes, q0 in (
-                  ("tiled", 2048, 2048, 256, (100, 300), (1, 2, 3), 200_000),
-                  ("wide", 2048, 2048, 6144, (800, 1600), (0, 2, 3),
-                   600_000))]
-    genome = torch.full((HIGH_G,), 4, dtype=torch.uint8, device=dev)
-    genome[lo:] = torch.from_numpy(top).to(dev)
-    readbuf = torch.from_numpy(readbuf_np).to(dev)
-    params = torch.tensor([2.0, -5.0, -5.0, -5.0, -1.0, 0.15],
-                          dtype=torch.float32, device=dev)
-    spk = torch.from_numpy(np.ascontiguousarray(spk_np)).to(dev)
+    spk = torch.from_numpy(np.ascontiguousarray(spk_np)).to(genome.device)
     got = K.score_fill(genome, readbuf, spk, 320, 256)
-    errs = {"score_fill": max_abs_err(
-        [(got, K.score_fill_plain(genome, readbuf, spk, 320, 256))])}
+    err = max_abs_err([(got, K.score_fill_plain(genome, readbuf, spk, 320,
+                                                256))])
     ds = spk_np[:, 0].view(np.uint32)
-    log("past 2^31: score_fill P=%d, ds %d-%d, on a genome of %d B: "
-        "max_abs_err=%g, median score %g"
-        % (len(spk_np), int(ds.min()), int(ds.max()), HIGH_G,
-           errs["score_fill"], float(got.median())))
-    errs.update(corridor_windows=0.0, convex_fill=0.0, convex_backtrack=0.0)
-    for tag, Wp, Hp, L, apk_np in shapes:
-        apk = torch.from_numpy(apk_np).to(dev)
+    log("%s: score_fill P=%d, ds %d-%d, on a genome of %s B: max_abs_err=%g, "
+        "median score %g" % (tag, len(spk_np), int(ds.min()), int(ds.max()),
+                             " x ".join(map(str, genome.shape)), err,
+                             float(got.median())))
+    ms = cuda_ms(lambda: K.score_fill(genome, readbuf, spk, 320, 256),
+                 reps=20) if timed else None
+    return err, ms
+
+
+def chain_errs(tag, genome, readbuf, shapes, timed=None):
+    """corridor_windows, convex_fill and convex_backtrack against their
+    plain versions on each (name, Wp, Hp, L, align rows) of shapes; the
+    shape named timed is also timed (CUDA events). Returns ({kernel:
+    max_abs_err}, {kernel: ms})."""
+    import torch
+    from ngmlr_tpu_torch.ops import kernels as K
+    params = torch.tensor(PARAMS, dtype=torch.float32, device=genome.device)
+    errs = dict(corridor_windows=0.0, convex_fill=0.0, convex_backtrack=0.0)
+    times = {}
+    for name, Wp, Hp, L, apk_np in shapes:
+        apk = torch.from_numpy(apk_np).to(genome.device)
         TpP = Wp + Hp
         win = K.corridor_windows(apk, TpP)
         e_cw = max_abs_err(zip(win, K.corridor_windows_plain(apk, TpP)))
@@ -1013,16 +1005,120 @@ def high_kernel_errs(dev):
         for k, e in (("corridor_windows", e_cw), ("convex_fill", e_fill),
                      ("convex_backtrack", e_bt)):
             errs[k] = max(errs[k], e)
-        log("past 2^31: convex %s B=%d Wp=%d Hp=%d L=%d, ds from %d: "
-            "windows, fill, backtrack max_abs_err = %g, %g, %g; ok=%d/%d, "
-            "max hmax %d"
-            % (tag, apk.shape[0], Wp, Hp, L,
+        log("%s: convex %s B=%d Wp=%d Hp=%d L=%d, ds from %d: windows, fill, "
+            "backtrack max_abs_err = %g, %g, %g; ok=%d/%d, max hmax %d"
+            % (tag, name, apk.shape[0], Wp, Hp, L,
                int(apk_np[:, 0].view(np.uint32).min()), e_cw, e_fill, e_bt,
                int(bt[3].eq(K.DONE).sum()), apk.shape[0], int(hmax.max())))
+        if name == timed:
+            times = dict(
+                corridor_windows=cuda_ms(
+                    lambda: K.corridor_windows(apk, TpP), reps=20),
+                convex_fill=cuda_ms(lambda: K.convex_fill(
+                    genome, readbuf, apk, params, ymin, ymax, L), reps=3),
+                convex_backtrack=cuda_ms(lambda: K.convex_backtrack(
+                    dirs, ymin, apk, bx, by), reps=3))
         del got, want, bt, dirs
+        torch.cuda.empty_cache()
+    return errs, times
+
+
+def unit_kernel_errs(dev):
+    """The four alignment kernels against their plain versions on rows of
+    a genome of UNIT_PLANES unit planes (unit_rows: windows at and past each
+    plane's end and in its halo): score_fill at the hot 320 x 256 bucket,
+    then corridor_windows, convex_fill and convex_backtrack at a tiled and
+    a wide lane class of the fill. Returns {kernel: max_abs_err}."""
+    import torch
+    rng = np.random.default_rng(70)
+    planes_np = rng.integers(0, 5, (UNIT_PLANES, UNIT_PLANE)).astype(np.uint8)
+    readbuf_np = rng.integers(0, 5, 1 << 20).astype(np.uint8)
+    spk_np = unit_rows(rng, planes_np, readbuf_np, 600, (306, 307), (1, 2),
+                       (1,), H_max=256)[:, :7]
+    shapes = [(tag, Wp, Hp, L, unit_rows(rng, planes_np, readbuf_np, 15,
+                                         (600, 1800), widths, modes,
+                                         H_max=Hp - 1, q0=q0))
+              for tag, Wp, Hp, L, widths, modes, q0 in (
+                  ("tiled", 2048, 2048, 256, (100, 300), (1, 2, 3), 200_000),
+                  ("wide", 2048, 2048, 6144, (800, 1600), (0, 2, 3),
+                   600_000))]
+    planes = torch.from_numpy(planes_np).to(dev)
+    readbuf = torch.from_numpy(readbuf_np).to(dev)
+    errs = {"score_fill": score_err("units", planes, readbuf, spk_np)[0]}
+    errs.update(chain_errs("units", planes, readbuf, shapes)[0])
+    return errs
+
+
+def high_kernel_errs(dev):
+    """The four alignment kernels against their plain versions on rows past
+    2^31 of a flat genome of HIGH_G bytes (high_rows: windows ending at and
+    running past its last byte, and inside its seeded top): score_fill at
+    the hot 320 x 256 bucket, then corridor_windows, convex_fill and
+    convex_backtrack at a tiled and a wide lane class of the fill. Returns
+    {kernel: max_abs_err}."""
+    import torch
+    rng = np.random.default_rng(231)
+    lo = HIGH_G - HIGH_SPAN
+    top = rng.integers(0, 5, HIGH_SPAN).astype(np.uint8)
+    readbuf_np = rng.integers(0, 5, 1 << 20).astype(np.uint8)
+    spk_np = high_rows(rng, top, lo, readbuf_np, 600, (306, 307), (1, 2),
+                       (1,), H_max=256)[:, :7]
+    shapes = [(tag, Wp, Hp, L, high_rows(rng, top, lo, readbuf_np, 15,
+                                         (600, 1800), widths, modes,
+                                         H_max=Hp - 1, q0=q0))
+              for tag, Wp, Hp, L, widths, modes, q0 in (
+                  ("tiled", 2048, 2048, 256, (100, 300), (1, 2, 3), 200_000),
+                  ("wide", 2048, 2048, 6144, (800, 1600), (0, 2, 3),
+                   600_000))]
+    genome = torch.full((HIGH_G,), 4, dtype=torch.uint8, device=dev)
+    genome[lo:] = torch.from_numpy(top).to(dev)
+    readbuf = torch.from_numpy(readbuf_np).to(dev)
+    errs = {"score_fill": score_err("past 2^31", genome, readbuf,
+                                    spk_np)[0]}
+    errs.update(chain_errs("past 2^31", genome, readbuf, shapes)[0])
     del genome
     torch.cuda.empty_cache()
     return errs
+
+
+def real_slab_errs(dev):
+    """The four alignment kernels against their plain versions on unit rows
+    over REAL_UNITS planes of the real 2^31 slab (SeededPlanes; 9.66 GB on
+    the card, plane 2 past 2^32 of the tensor; unit_rows: windows at and
+    past each plane's end and across its slab's end, local ds past 2^31),
+    at phase 2's main-path shapes (score_fill P=4096 at 320 x 256; the
+    fill's B=32, Wp=Hp=16384, L=256, 9-10 kb windows) and the wide lane
+    class, the main-path shapes timed. Returns ({kernel: max_abs_err},
+    {kernel: ms})."""
+    import torch
+    from ngmlr_tpu_torch.ops.device_engine import _size_class
+    rng = np.random.default_rng(2032)
+    planeP = _size_class(REAL_PLANE_LEN + 8, 1 << 20)
+    seeded = SeededPlanes(rng, planeP)
+    readbuf_np = rng.integers(0, 5, 1 << 21).astype(np.uint8)
+    rows = dict(plane_len=REAL_PLANE_LEN, halo=REAL_HALO_DS)
+    spk_np = unit_rows(rng, seeded, readbuf_np, 4096, (306, 307), (1, 2),
+                       (1,), H_max=256, **rows)[:, :7]
+    shapes = [("main-path", 16384, 16384, 256, unit_rows(
+                  rng, seeded, readbuf_np, 32, (9000, 10000), (200, 400),
+                  (2, 3), H_max=16383, q0=1_100_000, **rows)),
+              ("wide", 2048, 2048, 6144, unit_rows(
+                  rng, seeded, readbuf_np, 15, (600, 1800), (800, 1600),
+                  (0, 2, 3), H_max=2047, q0=1_700_000, **rows))]
+    planes = seeded.to(dev)
+    readbuf = torch.from_numpy(readbuf_np).to(dev)
+    log("real slab: planes %s (%d B) on the card, plane 2 from byte %d"
+        % (list(planes.shape), planes.nbytes, 2 * planeP))
+    err, ms = score_err("real slab", planes, readbuf, spk_np, timed=True)
+    errs, times = {"score_fill": err}, {"score_fill": ms}
+    e, t = chain_errs("real slab", planes, readbuf, shapes,
+                      timed="main-path")
+    errs.update(e)
+    times.update(t)
+    log("real slab: kernel ms at the main-path shapes %s" % json.dumps(times))
+    del planes
+    torch.cuda.empty_cache()
+    return errs, times
 
 
 def fill_edge_err(name, dev):
@@ -1034,8 +1130,7 @@ def fill_edge_err(name, dev):
     *bufs, pk_np, Wp, Hp, L = fill_edge_case(name)
     genome, readbuf, pk = (torch.from_numpy(a).to(dev)
                            for a in (*bufs, pk_np))
-    params = torch.tensor([2.0, -5.0, -5.0, -5.0, -1.0, 0.15],
-                          dtype=torch.float32, device=dev)
+    params = torch.tensor(PARAMS, dtype=torch.float32, device=dev)
     ymin, ymax, _ = K.corridor_windows(pk, Wp + Hp)
     got = K.convex_fill(genome, readbuf, pk, params, ymin, ymax, L)
     want = K.convex_fill_plain(genome, readbuf, pk, params, ymin, ymax, L)
@@ -2553,7 +2648,7 @@ def oracle_checks(dev):
         args[1][b, :len(sp.qry)] = np.frombuffer(sp.qry, np.uint8)
         args[2][b, :sp.T], args[3][b, :sp.T] = sp.ymin, sp.ymax
     args = [torch.from_numpy(a).to(dev) for a in args]
-    pvec = torch.tensor([2.0, -5.0, -5.0, -5.0, -1.0, 0.15], device=dev)
+    pvec = torch.tensor(PARAMS, device=dev)
     _wavefront_kernel(*args, pvec, L=L)
     _, rec["wavefront_kernel_ms"] = timed_once(
         lambda: _wavefront_kernel(*args, pvec, L=L))
@@ -2660,15 +2755,15 @@ HIGH_WRAPPERS = ("score_fill", "corridor_windows", "convex_fill",
                  "convex_backtrack")
 
 
-def write_gap_reference(path, ref_p):
-    """FASTA of one all-N chromosome of GAP_LEN bases ("gap", lines of
+def write_gap_reference(path, ref_p, gap_len=GAP_LEN):
+    """FASTA of one all-N chromosome of gap_len bases ("gap", lines of
     GAP_LINE bases), then the records of ref_p."""
     line = b"N" * GAP_LINE + b"\n"
     with open(path, "wb") as f:
         f.write(b">gap\n")
-        for _ in range(GAP_LEN // GAP_LINE):
+        for _ in range(gap_len // GAP_LINE):
             f.write(line)
-        f.write(b"N" * (GAP_LEN % GAP_LINE) + b"\n")
+        f.write(b"N" * (gap_len % GAP_LINE) + b"\n")
         with open(ref_p, "rb") as src:
             while True:
                 chunk = src.read(1 << 24)
@@ -2682,9 +2777,10 @@ def row_reach():
     """Stand in for the four alignment wrappers of ngmlr_tpu_torch.ops.
     kernels, recording for each call, on the device, the rows it was handed
     that name a window (hi > 0: the engine's padding and rows in a spacer
-    carry hi = 0), how many of them start at 2^31 or above, and their
-    least ds; then call the wrapper. Yields {wrapper: [(rows, rows past
-    2^31, least ds) tensors]}, read once the run is over."""
+    carry hi = 0), how many of them start at 2^31 or above, their least ds,
+    and their least and largest unit (bits 28+ of W); then call the
+    wrapper. Yields {wrapper: [(rows, rows past 2^31, least ds, least unit,
+    largest unit) tensors]}, read once the run is over (reach_of)."""
     import torch
     from ngmlr_tpu_torch.ops import kernels as K
     seen = {n: [] for n in HIGH_WRAPPERS}
@@ -2693,8 +2789,11 @@ def row_reach():
     def note(name, pk):
         ds = pk[:, 0].long() & 0xFFFFFFFF
         real = (pk[:, 1].long() & 0xFFFFFFFF) > 0
+        unit = (pk[:, 3].long() & 0xFFFFFFFF) >> 28
         seen[name].append((real.sum(), (real & (ds >= 1 << 31)).sum(),
-                           torch.where(real, ds, 1 << 32).min()))
+                           torch.where(real, ds, 1 << 32).min(),
+                           torch.where(real, unit, 16).min(),
+                           torch.where(real, unit, -1).max()))
 
     def wrap(name, pk_arg):
         def f(*a):
@@ -2710,6 +2809,51 @@ def row_reach():
     finally:
         for n, f in orig.items():
             setattr(K, n, f)
+
+
+def reach_of(seen):
+    """row_reach's records summed per wrapper: {wrapper: {calls, rows,
+    rows_past_2_31, least_ds, units: [least, largest]}} over the rows that
+    name a window."""
+    reach = {}
+    for name, calls in seen.items():
+        calls = [[int(v) for v in c] for c in calls]
+        live = [c for c in calls if c[0]]
+        reach[name] = dict(
+            calls=len(calls), rows=sum(c[0] for c in calls),
+            rows_past_2_31=sum(c[1] for c in calls),
+            least_ds=min((c[2] for c in live), default=None),
+            units=[min((c[3] for c in live), default=None),
+                   max((c[4] for c in live), default=None)])
+    return reach
+
+
+def check_index_table(tag, p, start):
+    """The index of a genome whose last chromosome starts at start (the
+    all-N gap before it emits no k-mer): its positions of the type the
+    genome's concatenated length calls for, uint32 below 2^32 and int64
+    from there (a uint32 table wraps a position past 2^32 to pos - 2^32),
+    and none below start. Returns (least position, dtype name)."""
+    from ngmlr_tpu_torch.index.kmer_index import positions_dtype
+    pos = p.index.positions
+    pos_min = int(pos.min())
+    want = positions_dtype(p.ref.concat_len)
+    check(pos.dtype == want, "%s: index positions of %s for a genome of "
+          "%d bases, not %s" % (tag, pos.dtype, len(p.ref.codes), want))
+    check(pos_min >= start, "%s: an index position below the chromosome "
+          "(%d)" % (tag, pos_min))
+    return pos_min, str(pos.dtype)
+
+
+def _origins(reads_p):
+    """{read name: the source position in its name (r<i>_<pos>)}."""
+    origin = {}
+    with open(reads_p, "rb") as f:
+        for line in f:
+            if line.startswith(b">"):
+                name = line[1:].split()[0]
+                origin[name] = int(name.rsplit(b"_", 1)[1])
+    return origin
 
 
 def _body(sam):
@@ -2736,12 +2880,7 @@ def phase_high_genome(main_path, workdir):
     write_gap_reference(ref9, ref_p)
     log("past 2^31: wrote %s (a %d-base gap chromosome, then phase 4's) in "
         "%.2f s" % (ref9, GAP_LEN, time.perf_counter() - t0))
-    origin = {}
-    with open(reads_p, "rb") as f:
-        for line in f:
-            if line.startswith(b">"):
-                name = line[1:].split()[0]
-                origin[name] = int(name.rsplit(b"_", 1)[1])
+    origin = _origins(reads_p)
     try:
         torch.cuda.reset_peak_memory_stats()
         p, t_setup = _pipeline(ref9, reads_p)
@@ -2752,12 +2891,10 @@ def phase_high_genome(main_path, workdir):
         resident = {"genome": p.ctx.genome.nbytes,
                     "bucket_pairs": p.dev_search.bucket_pairs.nbytes,
                     "positions": p.dev_search.positions.nbytes}
-        pos_min = int(p.index.positions.min())
+        pos_min, pos_dt = check_index_table("past 2^31", p, start)
         log("past 2^31: setup %.2f s, chromosome start %d, least index "
-            "position %d, resident on the card %s"
-            % (t_setup, start, pos_min, json.dumps(resident)))
-        check(pos_min >= start, "past 2^31: an index position below the "
-              "chromosome (%d)" % pos_min)
+            "position %d (%s), resident on the card %s"
+            % (t_setup, start, pos_min, pos_dt, json.dumps(resident)))
         with row_reach() as seen:
             out, t_run, launches = _run_on(p, reads_p)
         summary = mapping_summary("past 2^31", GENOME_MBP, p, out, origin,
@@ -2765,20 +2902,17 @@ def phase_high_genome(main_path, workdir):
         for name in KERNELS:
             check(launches[name] > 0,
                   "kernel %s was not launched past 2^31" % name)
-        reach = {}
-        for name, calls in seen.items():
-            rows = sum(int(r) for r, _, _ in calls)
-            high = sum(int(h) for _, h, _ in calls)
-            least = min((int(m) for r, _, m in calls if int(r)), default=None)
-            reach[name] = dict(calls=len(calls), rows=rows,
-                               rows_past_2_31=high, least_ds=least)
-            check(rows > 0 and high == rows,
+        reach = reach_of(seen)
+        for name, r in reach.items():
+            check(r["rows"] > 0 and r["rows_past_2_31"] == r["rows"],
                   "past 2^31: %s was handed %d rows, %d of them past 2^31 "
-                  "(least ds %s)" % (name, rows, high, least))
+                  "(least ds %s)" % (name, r["rows"], r["rows_past_2_31"],
+                                     r["least_ds"]))
         summary["rows"] = reach
         summary["resident_bytes"] = resident
         summary["chromosome_start"] = start
         summary["least_index_position"] = pos_min
+        summary["positions_dtype"] = pos_dt
         log("past 2^31: rows handed to the alignment kernels %s"
             % json.dumps(reach))
         same = _body(out) == _body(main_sam)
@@ -2794,6 +2928,107 @@ def phase_high_genome(main_path, workdir):
         del p
     finally:
         os.remove(ref9)
+        torch.cuda.empty_cache()
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 10: past 2^32 (phase 4's genome behind a 4.29 Gbp all-N gap
+# chromosome: three units of the real 2^31 slab)
+# ---------------------------------------------------------------------------
+
+# the gap chromosome's length: even, and GAP_LEN_32 + 1000 a multiple of
+# 2^16 above 2^32, so phase 4's chromosome starts at 1000 + GAP_LEN_32 +
+# 1000 = 4,295,033,832, past 2^32 and congruent to its phase-4 start modulo
+# 2^16. The genome (~4.35 Gbp) is 3 units of 2^31; the chromosome lies in
+# unit 2, from its local base 66,536
+GAP_LEN_32 = (1 << 32) + (1 << 16) - 1000
+UNITS_PAST_2_32 = 3
+
+
+def phase_units_past_2_32(main_path, workdir):
+    """Phase 10: phase 4's genome and reads behind one all-N gap chromosome
+    of GAP_LEN_32 bases, so the chromosome's sequence and index positions
+    lie past 2^32 and in unit 2 of three real 2^31-base slabs. Mapped as the
+    reference maps a multi-unit genome (host search, Python assembly path)
+    under NGMLR_TPU_STRICT=1: the index int64 and shifted, every row handed
+    to the four alignment kernels naming unit 2, the launches equal to the
+    waves (no expand_votes), the SAM body (@SQ lines aside) equal to phase
+    4's, mapped and placed shares as phase 4's (placement is
+    chromosome-local, which the gap does not move)."""
+    import torch
+    tag = "past 2^32"
+    ref_p, reads_p, main_sam = main_path
+    os.makedirs(workdir, exist_ok=True)
+    ref10 = os.path.join(workdir, "ref_gap32.fa")
+    t0 = time.perf_counter()
+    write_gap_reference(ref10, ref_p, GAP_LEN_32)
+    t_write = time.perf_counter() - t0
+    log("%s: wrote %s (a %d-base gap chromosome, then phase 4's) in %.2f s"
+        % (tag, ref10, GAP_LEN_32, t_write))
+    origin = _origins(reads_p)
+    old = [_env("NGMLR_TPU_UNIT_SLAB_BITS", None),
+           _env("NGMLR_TPU_STRICT", "1")]
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        p, t_setup = _pipeline(ref10, reads_p)
+        start = int(p.ref.ref_start[1])
+        check(start == 1000 + GAP_LEN_32 + 1000 and start > 1 << 32,
+              "%s: the chromosome starts at %d" % (tag, start))
+        planes = p.ctx.genome
+        check(p.ref.n_units == p.ctx.n_units == UNITS_PAST_2_32
+              and planes.dim() == 2 and planes.shape[0] == UNITS_PAST_2_32,
+              "%s: %d units on the host, %d in the context, planes %s"
+              % (tag, p.ref.n_units, p.ctx.n_units, list(planes.shape)))
+        check(p.dev_search is None and p.native is None,
+              "%s: the device search or the native engine is on" % tag)
+        pos_min, pos_dt = check_index_table(tag, p, start)
+        log("%s: setup %.2f s, chromosome start %d, %d units, planes %s "
+            "(%d B), least index position %d (%s)"
+            % (tag, t_setup, start, p.ref.n_units, list(planes.shape),
+               planes.nbytes, pos_min, pos_dt))
+        with row_reach() as seen:
+            out, t_run, launches = _run_on(p, reads_p)
+        check_launches(tag, launches, p.ctx.stats)
+        check(launches["expand_votes"] == 0
+              and all(launches[k] > 0 for k in HIGH_WRAPPERS),
+              "%s: launches %s" % (tag, launches))
+        reach = reach_of(seen)
+        last = UNITS_PAST_2_32 - 1
+        for name, r in reach.items():
+            check(r["rows"] > 0 and r["units"] == [last, last],
+                  "%s: %s was handed %d rows of units %s, not all of unit %d"
+                  % (tag, name, r["rows"], r["units"], last))
+        reads, mapped = p.stats["reads"], p.stats["mapped"]
+        summary = dict(
+            gap_len=GAP_LEN_32, chromosome_start=start,
+            genome_bytes=int(len(p.ref.codes)), units=p.ref.n_units,
+            planes_shape=list(planes.shape), planes_bytes=planes.nbytes,
+            least_index_position=pos_min, positions_dtype=pos_dt,
+            write_s=t_write, setup_s=t_setup, map_s=t_run,
+            reads=reads, mapped=mapped, reads_per_s=reads / t_run,
+            primary_near_origin=near_origin(out, origin),
+            score_waves=p.ctx.stats["score_waves"],
+            align_waves=p.ctx.stats["align_waves"], launches=launches,
+            rows=reach, max_memory_allocated=torch.cuda.max_memory_allocated(),
+            sam_body_equal_to_phase_4=_body(out) == _body(main_sam))
+        log("%s: %s" % (tag, json.dumps(summary)))
+        check(summary["sam_body_equal_to_phase_4"],
+              "%s: the SAM body differs from phase 4's" % tag)
+        check(mapped >= 0.95 * reads, "%s: only %d of %d reads mapped"
+              % (tag, mapped, reads))
+        check(summary["primary_near_origin"] >= 0.9,
+              "%s: only %.3f of the primary records lie near their source"
+              % (tag, summary["primary_near_origin"]))
+        log("%s: setup %.2f s, map %.3f s (%.1f reads/s), peak device memory "
+            "%d B, every kernel row in unit %d, SAM body equal to phase 4's"
+            % (tag, t_setup, t_run, summary["reads_per_s"],
+               summary["max_memory_allocated"], last))
+        del p, planes
+    finally:
+        _env("NGMLR_TPU_UNIT_SLAB_BITS", old[0])
+        _env("NGMLR_TPU_STRICT", old[1])
+        os.remove(ref10)
         torch.cuda.empty_cache()
     return summary
 
@@ -2867,6 +3102,12 @@ def main():
             main_path, os.path.join(HERE, "ngmlr_tpu_torch", "_build",
                                     "smoke_high"))
         log("phase 9 (past 2^31): %.2f s" % (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        record["units_past_2_32"] = phase_units_past_2_32(
+            main_path, os.path.join(HERE, "ngmlr_tpu_torch", "_build",
+                                    "smoke_past32"))
+        log("phase 10 (past 2^32, three real slabs): %.2f s"
+            % (time.perf_counter() - t0))
         # the launches of the one-chromosome run, the main path
         launches = record["mapping"]["launches"]
     except PhaseError as e:

@@ -10,24 +10,39 @@ port's Pipeline. The counterpart of scripts/human_scale.py, stage for stage.
 
 GBP defaults to 3.0: concatenated coordinates then pass 2^31, so the card
 reads genome bytes and index positions in the upper half of the 32-bit
-space. The work directory is HUMAN_SCALE_DIR (default _human_scale/ in the
-checkout); the FASTA (genome_<GBP>gbp.fa), the reads and the port's
-*-enc.torch.npz / *-ht-*.torch.npz caches stay there, so a second run in
-the same directory skips generation, encode and index build.
+space. Above 4.29 Gbp (4.6: three units of 2^31 bases) the genome maps as
+the reference maps it: unit planes on the card, the host search and the
+Python assembly path; the index holds int64 positions. The work
+directory is HUMAN_SCALE_DIR (default _human_scale/ in the checkout); the
+FASTA (genome_<GBP>gbp.fa), the reads and the port's *-enc.torch.npz /
+*-ht-*.torch.npz caches stay there, so a second run in the same
+directory skips generation, encode and index build.
 
 Stages, each timed on its own: generation, encode (or its cache load),
-index build (or its cache load), with kept positions, table GB and peak
-host RSS. With --map N: N reads of 5-14 kb at ~15% error (10% insertions,
-4% deletions, 1% substitutions), named r<i>_<concat position of their
-source>; one Pipeline on the card (its construction timed as setup, split
-into the genome and index cache loads, the genome upload and the device
-search's tables) maps them twice, a warm pass and a steady pass, each with
-the launch counters set to 0 just before it. The steady pass gives reads/s,
+index build (or its cache load), with kept positions, their type, table
+GB and peak host RSS. With --map N: N reads of 5-14 kb at ~15% error (10%
+insertions, 4% deletions, 1% substitutions), named r<i>_<concat position
+of their source>; one Pipeline on the card (its construction timed as
+setup, split into the genome and index cache loads, the genome upload and
+the device search's tables) maps them twice, a warm pass and a steady
+pass, each with the launch counters set to 0 just before it. The steady
+pass gives reads/s,
 the mapped share, the placed share (primary records within 2 kb of their
-source), the context's stage times and search counters, and launches per
-kernel, each equal to its engine's waves. --host-check M (default 16) maps
-the first M reads with the device search and again with the host search
-on the same Pipeline: the SAMs must be equal, byte for byte. --profile DIR
+source), the context's stage times and search counters, launches per
+kernel, each equal to its engine's waves, and the units of the rows
+handed to the four alignment kernels. On a genome past 2^32, PAST_READS
+more reads from their own generator start past 2^32 (named from r<N>);
+their placed share is reported apart, as are each unit's reads, mapped
+reads and placed share; each unmapped read is listed with the distinct
+13-mers of 5 kb from its source (a tandem repeat shows few). Checks: mapped
+share >= 0.95, placed share >= 0.90, and every kernel of the path
+launched (the four alignment kernels, and expand_votes with the device
+search); on a multi-unit genome also every read mapped, the past-2^32
+placed share >= 0.90, the context holding every unit and a score_fill row
+naming the last. --host-check M (default 16) maps the first M reads with
+the device search and again with the host search on the same Pipeline:
+the SAMs must be equal, byte for byte; on a multi-unit genome the device
+search is off, so the check is not run ("n/a" in the JSON). --profile DIR
 traces one more pass with torch.profiler (device time by kernel, busy
 share). Any failed check exits non-zero.
 
@@ -50,6 +65,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
+# on a genome past 2^32, PAST_READS more reads (their own generator) whose
+# source windows lie wholly past 2^32
+PAST_LO = 1 << 32
+PAST_READS = 16
+PAST_SEED = 232
 KERNELS = ("score_fill", "corridor_windows", "convex_fill",
            "convex_backtrack", "expand_votes")
 
@@ -102,21 +122,22 @@ def make_genome_fa(path: str, gbp: float, seed: int = 7):
     return time.time() - t0
 
 
-def write_reads(path, ref, n, seed=99):
+def write_reads(path, ref, n, seed=99, lo=1000, first=0, mode="wb"):
     """n reads sampled from the encoded genome as scripts/human_scale.py
     samples them: 5-14 kb windows with fewer than a quarter N, the
     PacBio-CLR-like profile (10% insertions, 4% deletions, 1%
-    substitutions), named r<i>_<source position>. Returns the source
-    positions."""
+    substitutions), named r<i>_<source position> (i from first). With lo,
+    every window starts at lo or later; mode "ab" appends to path. Returns
+    the source positions."""
     rng = np.random.default_rng(seed)
     glen = len(ref.codes)
     origin = []
-    with open(path, "wb") as f:
-        for i in range(n):
+    with open(path, mode) as f:
+        for i in range(first, first + n):
             L = int(rng.integers(5000, 14000))
             # retry until the window decodes to mostly ACGT
             for _ in range(10):
-                pos = int(rng.integers(1000, glen - L - 1000))
+                pos = int(rng.integers(lo, glen - L - 1000))
                 frag = ref.decode_window(pos, L)
                 if frag.count(b"N") < L // 4:
                     break
@@ -148,26 +169,43 @@ def first_reads(path, out_path, m):
         f.write(b"\n".join(lines[:2 * m]) + b"\n")
 
 
-def placed_share(sam, ref):
-    """Share of the SAM's primary records on their read's source
-    chromosome within 2 kb of the source (read names r<i>_<concat
-    position>)."""
-    near = n_prim = 0
+def placed_reads(sam, ref):
+    """{read name: whether its primary record lies on the read's source
+    chromosome within 2 kb of the source} over the SAM's mapped primary
+    records (read names r<i>_<concat position>)."""
+    placed = {}
     for line in sam.split(b"\n"):
         if not line or line.startswith(b"@"):
             continue
         f = line.split(b"\t")
         if int(f[1]) & 0x904:
             continue
-        n_prim += 1
-        src = int(f[0].rsplit(b"_", 1)[1])
-        conv = ref.convert(src)
-        if conv is None:
-            continue
-        ref_id, local = conv
-        near += (f[2] == ref.name_of(ref_id)
-                 and abs(int(f[3]) - 1 - local) <= 2000)
-    return near / max(1, n_prim)
+        conv = ref.convert(int(f[0].rsplit(b"_", 1)[1]))
+        placed[f[0]] = conv is not None and (
+            f[2] == ref.name_of(conv[0])
+            and abs(int(f[3]) - 1 - conv[1]) <= 2000)
+    return placed
+
+
+def placed_share(placed, names=None):
+    """Share of placed primary records (placed_reads), over the reads in
+    names only where given."""
+    got = [v for k, v in placed.items() if names is None or k in names]
+    return sum(got) / max(1, len(got))
+
+
+def distinct_kmers(ref, pos, n=5000, k=13):
+    """Distinct k-mers among the n bases from concatenated position pos (a
+    read's source): about n for unique sequence, at most p inside a tandem
+    repeat of period p."""
+    w = ref.decode_window(pos, n + 2) or b""
+    return len({w[i:i + k] for i in range(len(w) - k + 1)})
+
+
+def read_names(path):
+    """The record names of a FASTA, in order."""
+    with open(path, "rb") as f:
+        return [l[1:].split()[0] for l in f if l.startswith(b">")]
 
 
 def card_line():
@@ -235,12 +273,17 @@ def setup(fa, gbp, workdir):
     res["units"] = int(ref.n_units)
     sys.stderr.write("encode: %.1f s (len=%d, peak RSS %.1f GB)\n"
                      % (res["encode_s"], len(ref.codes), peak_rss_gb()))
-    res["index_cached"] = os.path.exists(fa + "-ht-13-2.torch.npz")
     t0 = time.time()
-    idx = KmerIndex.load_or_build(ref, fa, use_cache=True)
+    with Stopwatch() as sw:
+        sw.wrap("build_s", KmerIndex, "build")
+        idx = KmerIndex.load_or_build(ref, fa, use_cache=True)
     res["index_s"] = time.time() - t0
+    # a cache is rebuilt where its positions' type does not fit the genome
+    # (a uint32 table past 2^32, written by a build that wrapped them)
+    res["index_cached"] = "build_s" not in sw.s
     res["index_positions"] = int(len(idx.positions))
     res["index_gb"] = (idx.bucket_start.nbytes + idx.positions.nbytes) / 1e9
+    res["positions_dtype"] = str(idx.positions.dtype)
     res["max_position"] = int(idx.positions.max()) if len(idx.positions) \
         else 0
     res["peak_rss_gb_after_index"] = peak_rss_gb()
@@ -258,8 +301,8 @@ def map_reads(ref, fa, n_map, host_check, workdir, profile_dir=None):
     runs through chip_smoke._run_counted: launch counters set to 0 just
     before it, its launches equal to its engine's waves, no batch handed
     back by the device search (chip_smoke.PhaseError otherwise). Returns
-    its numbers, with "fails" listing the checks of shares and SAMs that
-    failed."""
+    its numbers, with "fails" listing the checks of shares, units and SAMs
+    that failed."""
     import torch
     import chip_smoke as cs
     from ngmlr_tpu_torch.config import Config
@@ -268,9 +311,16 @@ def map_reads(ref, fa, n_map, host_check, workdir, profile_dir=None):
     from ngmlr_tpu_torch.ops import device_engine
     from ngmlr_tpu_torch.pipeline.runner import Pipeline
     from ngmlr_tpu_torch.seed import device_search
-    res = {"map_reads": n_map}
+    multi = ref.n_units > 1
     reads = os.path.join(workdir, "reads_%d.fa" % n_map)
     write_reads(reads, ref, n_map)
+    past = []
+    if len(ref.codes) > PAST_LO + (1 << 20):
+        # the past-2^32 set, appended after the reference script's reads
+        write_reads(reads, ref, PAST_READS, seed=PAST_SEED, lo=PAST_LO,
+                    first=n_map, mode="ab")
+        past = read_names(reads)[n_map:]
+    res = {"map_reads": n_map, "past_2_32_reads": len(past)}
     torch.cuda.reset_peak_memory_stats()
     with Stopwatch() as sw:
         sw.wrap("genome_cache_load_s", ReferenceGenome, "from_fasta")
@@ -283,21 +333,25 @@ def map_reads(ref, fa, n_map, host_check, workdir, profile_dir=None):
         res["setup_s"] = time.perf_counter() - t0
     res["setup_split_s"] = sw.s
     res["device_search"] = p.dev_search is not None
+    res["units"] = p.ctx.n_units
+    res["resident_bytes"] = {"genome": p.ctx.genome.nbytes}
     if p.dev_search is not None:
-        res["resident_bytes"] = {
-            "genome": p.ctx.genome.nbytes,
-            "bucket_pairs": p.dev_search.bucket_pairs.nbytes,
-            "positions": p.dev_search.positions.nbytes}
-    sys.stderr.write("pipeline setup: %.1f s %s\n"
-                     % (res["setup_s"], json.dumps(sw.s)))
+        res["resident_bytes"].update(
+            bucket_pairs=p.dev_search.bucket_pairs.nbytes,
+            positions=p.dev_search.positions.nbytes)
+    sys.stderr.write("pipeline setup: %.1f s %s, %d unit(s), genome on the "
+                     "card %s\n" % (res["setup_s"], json.dumps(sw.s),
+                                    p.ctx.n_units,
+                                    list(p.ctx.genome.shape)))
 
     passes = {}
     for tag in ("warm", "steady"):
-        out, t_run, launches, st = cs._run_counted(tag + " pass", p,
-                                                   reads)
+        with cs.row_reach() as seen:
+            out, t_run, launches, st = cs._run_counted(tag + " pass", p,
+                                                       reads)
         passes[tag] = dict(map_s=t_run, reads=p.stats["reads"],
                            mapped=p.stats["mapped"], launches=launches,
-                           stats=st)
+                           stats=st, rows=cs.reach_of(seen))
         sys.stderr.write("%s pass: %.2f s, %d/%d mapped, launches %s\n"
                          % (tag, t_run, p.stats["mapped"], p.stats["reads"],
                             json.dumps(launches)))
@@ -308,20 +362,64 @@ def map_reads(ref, fa, n_map, host_check, workdir, profile_dir=None):
     res["reads_per_s"] = steady["reads"] / steady["map_s"]
     res["mapped"] = steady["mapped"]
     res["mapped_share"] = steady["mapped"] / max(1, steady["reads"])
-    res["placed_share"] = placed_share(out, ref)
+    placed = placed_reads(out, ref)
+    res["placed_share"] = placed_share(placed)
+    if past:
+        res["placed_share_past_2_32"] = placed_share(placed, set(past))
+    names = read_names(reads)
+    if multi:
+        # by the unit of each read's source
+        by_unit = {}
+        for name in names:
+            u = int(name.rsplit(b"_", 1)[1]) >> ref.unit_bits
+            by_unit.setdefault(u, []).append(name)
+        res["by_unit"] = {
+            str(u): dict(reads=len(un), mapped=sum(n in placed for n in un),
+                         placed_share=placed_share(placed, set(un)))
+            for u, un in sorted(by_unit.items())}
+    # each unmapped read's source, and how repetitive it is
+    res["unmapped"] = [
+        dict(read=n.decode(), source_distinct_13mers=distinct_kmers(
+            ref, int(n.rsplit(b"_", 1)[1])))
+        for n in names if n not in placed]
     res["launches"] = steady["launches"]
     res["stats"] = steady["stats"]
+    res["rows"] = steady["rows"]
     res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     res["peak_rss_gb"] = peak_rss_gb()
     fails = []
-    if p.dev_search is not None:
-        fails += ["%s launched no time in the steady pass" % k
-                  for k in KERNELS if not steady["launches"][k]]
+    # the device search adds expand_votes; a multi-unit genome maps through
+    # the host search, as the reference maps it
+    kernels = KERNELS if p.dev_search is not None else KERNELS[:4]
+    fails += ["%s launched no time in the steady pass" % k
+              for k in kernels if not steady["launches"][k]]
     if res["mapped_share"] < 0.95:
         fails.append("mapped share %.3f < 0.95" % res["mapped_share"])
     if res["placed_share"] < 0.90:
         fails.append("placed share %.3f < 0.90" % res["placed_share"])
+    if past and res["placed_share_past_2_32"] < 0.90:
+        fails.append("placed share past 2^32 %.3f < 0.90"
+                     % res["placed_share_past_2_32"])
+    if multi:
+        if steady["mapped"] != steady["reads"]:
+            fails.append("%d of %d reads mapped" % (steady["mapped"],
+                                                   steady["reads"]))
+        if p.ctx.n_units != ref.n_units or p.dev_search is not None:
+            fails.append("the context holds %d units of the genome's %d, "
+                         "device search %s" % (p.ctx.n_units, ref.n_units,
+                                               p.dev_search is not None))
+        last = ref.n_units - 1
+        units = steady["rows"]["score_fill"]["units"]
+        if units[1] != last:
+            fails.append("no score_fill row of the steady pass names unit "
+                         "%d (units %s)" % (last, units))
 
+    if multi and host_check:
+        # the device search is off for a multi-unit genome: both runs would
+        # take the host search
+        res["host_check"] = "n/a: multi-unit genome, host search only"
+        sys.stderr.write("host check: %s\n" % res["host_check"])
+        host_check = 0
     if host_check:
         sub = os.path.join(workdir, "reads_%d_first_%d.fa" % (n_map,
                                                                host_check))
@@ -391,9 +489,10 @@ def main():
     result["total_s"] = time.time() - t_all
     print(json.dumps(result), flush=True)
     keys = ("generate_s", "encode_s", "index_s", "index_positions",
-            "max_position", "index_gb", "setup_s", "setup_split_s",
-            "map_warm_s", "map_s", "reads_per_s", "mapped_share",
-            "placed_share", "max_memory_allocated", "peak_rss_gb",
+            "max_position", "positions_dtype", "index_gb", "units",
+            "setup_s", "setup_split_s", "map_warm_s", "map_s", "reads_per_s",
+            "mapped_share", "placed_share", "placed_share_past_2_32",
+            "by_unit", "unmapped", "max_memory_allocated", "peak_rss_gb",
             "launches", "host_check", "fails")
     sys.stderr.write("\n## torch_human_scale %g Gbp on %s\n\n" % (args.gbp,
                                                                    card))

@@ -223,6 +223,20 @@ def test_kernels_past_2_31_match_plain(dev):
     assert all(e == 0 for e in errs.values()), errs
 
 
+def test_kernels_on_real_slab_planes_match_plain(dev):
+    """score_fill and convex_fill (with corridor_windows and
+    convex_backtrack on their outputs) on unit_rows over a [3, 2^31 + 2^30]
+    plane tensor, the planes of a genome above 4.29 Gbp at the 2^31 slab
+    and its 2^24 halo (plane 2 from byte 6,442,450,944; local ds past 2^31
+    in the halo), bit for bit against their plain versions (chip_smoke.py
+    phase 2)."""
+    from chip_smoke import real_slab_errs
+    errs, ms = real_slab_errs(dev)
+    assert sorted(errs) == sorted(ms) == ["convex_backtrack", "convex_fill",
+                                          "corridor_windows", "score_fill"]
+    assert all(e == 0 for e in errs.values()), errs
+
+
 @pytest.mark.parametrize("L", [256, 6144], ids=["tiled", "wide"])
 def test_convex_fill_on_unit_rows_matches_plain(dev, L):
     """Align rows over five genome planes through the tiled (L = 256) and

@@ -88,6 +88,46 @@ def test_index_on_the_human_scale_genome_matches_the_reference(mini_genome):
     assert np.diff(ours.bucket_start).max() <= 990
 
 
+def test_a_read_inside_a_repeat_patch_maps_in_neither_package(mini_genome,
+                                                              tmp_path):
+    """8 kb from inside the genome's alpha-satellite-like patch (one 171-bp
+    monomer tiled) is left unmapped by both packages' CLIs, and 8 kb of
+    unique sequence before it maps to its source in both; the script's
+    distinct_kmers tells the two sources apart (at most 171 against ~5000).
+    Such a read is unmapped by the algorithm, not by a genome's size."""
+    hs = _load("torch_human_scale", "torch_human_scale.py")
+    with open(mini_genome, "rb") as f:
+        seq = np.frombuffer(b"".join(l.strip() for l in f
+                                     if not l.startswith(b">")), np.uint8)
+    # the longest N-free run of period 171: the patch
+    rep = np.concatenate([[0], ((seq[171:] == seq[:-171])
+                                & (seq[171:] != ord("N"))).astype(np.int8),
+                          [0]])
+    a, b = np.nonzero(np.diff(rep) == 1)[0], np.nonzero(np.diff(rep) == -1)[0]
+    i = int(np.argmax(b - a))
+    lo, hi = int(a[i]), int(b[i]) + 171
+    assert 40_000 <= hi - lo <= 60_000
+    inside, outside = lo + 20_000, lo - 30_000
+    reads = str(tmp_path / "reads.fa")
+    with open(reads, "wb") as f:
+        for name, at in ((b"inside", inside), (b"outside", outside)):
+            f.write(b">%s\n%s\n" % (name, seq[at:at + 8000].tobytes()))
+    ref = ReferenceGenome.from_fasta(mini_genome, use_cache=False,
+                                     skip_save=True)
+    start = int(ref.ref_start[0])
+    assert hs.distinct_kmers(ref, start + inside) <= 171
+    assert hs.distinct_kmers(ref, start + outside) > 4900
+    for module, env in (("ngmlr_tpu", {"JAX_PLATFORMS": "cpu"}),
+                        ("ngmlr_tpu_torch", {"NGMLR_TORCH_DEVICE": "cpu"})):
+        sam = _cli(module, mini_genome, str(tmp_path / (module + ".sam")),
+                   env, reads=reads)
+        recs = {l.split(b"\t")[0]: l.split(b"\t") for l in _body(sam)
+                if l and not l.startswith(b"@")}
+        assert int(recs[b"inside"][1]) & 4, module
+        assert int(recs[b"outside"][1]) & 4 == 0, module
+        assert int(recs[b"outside"][3]) - 1 == outside, module
+
+
 # ---------------------------------------------------------------------------
 # (c): shift invariance through both CLIs
 # ---------------------------------------------------------------------------
@@ -121,9 +161,9 @@ def shifted_test2(tmp_path_factory):
                      {"JAX_PLATFORMS": "cpu"})
 
 
-def _cli(module, ref, out, env):
+def _cli(module, ref, out, env, reads=T2_READS):
     r = subprocess.run(
-        [sys.executable, "-m", module, "-r", ref, "-q", T2_READS,
+        [sys.executable, "-m", module, "-r", ref, "-q", reads,
          "-x", "pacbio", "-o", out], capture_output=True, cwd=REPO,
         timeout=600, env=dict(os.environ, NGMLR_TPU_STRICT="1",
                               OMP_NUM_THREADS="1", **env))
