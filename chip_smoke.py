@@ -89,7 +89,14 @@ Phases, each printed with its wall time:
      path) under NGMLR_TPU_STRICT=1: the index int64 and none of its
      positions below the chromosome, every row handed to the four
      alignment kernels naming unit 2, the SAM body equal to phase 4's,
-     with its setup seconds and peak device memory.
+     with its setup seconds and peak device memory;
+ 11. the bench: scripts/torch_bench.py (bench.py's port) in a subprocess,
+     pinned at the ladder's first scale (30 Mbp, 576 + 16 reads, 3 passes,
+     a 300 s deadline): exit code 0, its one JSON line without an error,
+     reads/s above 0, >= 0.95 mapped, 0 < useful GCUPS <= padded, waves of
+     the native engine, every kernel launched in the best pass (as often
+     as check_launches wants, which the bench holds), on the card phase 1
+     read; the line is logged.
 With --profile DIR, torch.profiler traces the first mapping of phases 4
 and 5 (device time by kernel and the busy share; in phase 4 also the
 launch shapes of corridor_windows, convex_fill and convex_backtrack and
@@ -745,13 +752,23 @@ def fill_edge_case(name):
 # phases
 # ---------------------------------------------------------------------------
 
+def card_line():
+    """The card's name and power limit as nvidia-smi gives them."""
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return "nvidia-smi unavailable"
+    lines = smi.stdout.strip().splitlines()
+    return lines[0] if smi.returncode == 0 and lines else \
+        "nvidia-smi unavailable"
+
+
 def phase_card_and_build():
     from ngmlr_tpu_torch.ops import build
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
-        "nvidia-smi unavailable"
+    card = card_line()
     log("card: %s" % card)
     t0 = time.perf_counter()
     build.build(verbose=True)
@@ -3033,6 +3050,83 @@ def phase_units_past_2_32(main_path, workdir):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the bench on the card (scripts/torch_bench.py, bench.py's port)
+# ---------------------------------------------------------------------------
+
+# the ladder's first scale, bench.py's 576 + 16 reads of ~9 kb
+BENCH_MBP = 30.0
+BENCH_PASSES = 3
+BENCH_DEADLINE_S = 300
+
+
+def run_bench(workdir, genome_mbp, passes=BENCH_PASSES, **extra):
+    """scripts/torch_bench.py pinned at one scale, in a subprocess on the
+    card (NGMLR_TORCH_DEVICE and every other BENCH_* variable unset), its
+    work directory under workdir. Returns the finished process."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("BENCH_")
+           and k not in ("NGMLR_TORCH_DEVICE", "NGMLR_TPU_DEVICE_SEARCH")}
+    env.update(TMPDIR=workdir, BENCH_GENOME_MBP=str(genome_mbp),
+               BENCH_PASSES=str(passes),
+               BENCH_DEADLINE_S=str(BENCH_DEADLINE_S), **extra)
+    os.makedirs(workdir, exist_ok=True)
+    try:
+        return subprocess.run(
+            [sys.executable, os.path.join(HERE, "scripts", "torch_bench.py")],
+            cwd=HERE, env=env, capture_output=True, text=True,
+            timeout=BENCH_DEADLINE_S + 60)
+    except subprocess.TimeoutExpired as e:
+        raise PhaseError("the bench outlived its %d s deadline: %s"
+                         % (BENCH_DEADLINE_S, e)) from None
+
+
+def check_bench_line(tag, proc, card):
+    """The bench's run: exit code 0 and exactly one JSON line on stdout,
+    without an error, with reads/s, >= 0.95 of the reads mapped, useful
+    GCUPS above 0 and at most the padded, native-engine waves, every kernel
+    launched in the best pass (the bench itself holds the pass's launches
+    to its engine's record with check_launches and sets `error` where they
+    differ), and the card phase 1 read. Returns the line."""
+    lines = proc.stdout.splitlines()
+    check(proc.returncode == 0 and len(lines) == 1,
+          "%s: exit code %d, %d stdout lines; stderr ends %s"
+          % (tag, proc.returncode, len(lines), proc.stderr[-2000:]))
+    line = json.loads(lines[-1])
+    check("error" not in line, "%s: %s" % (tag, line.get("error")))
+    check(line["value"] > 0 and line["mapped_frac"] >= 0.95,
+          "%s: %r reads/s, %r mapped" % (tag, line["value"],
+                                         line["mapped_frac"]))
+    check(0 < line["gcups_convex_dp"] <= line["gcups_convex_dp_padded"],
+          "%s: GCUPS useful %r, padded %r"
+          % (tag, line["gcups_convex_dp"], line["gcups_convex_dp_padded"]))
+    launches = line["kernel_launches"]
+    check(line["stage_counts"].get("engine_waves", 0) > 0,
+          "%s: the native engine ran no wave" % tag)
+    check(all(launches[k] > 0 for k in KERNELS),
+          "%s: a kernel was not launched: %s" % (tag, launches))
+    check(line["device"] == card, "%s: the bench ran on %r, phase 1 read %r"
+          % (tag, line["device"], card))
+    return line
+
+
+def phase_bench(card, workdir):
+    """Phase 11: scripts/torch_bench.py at BENCH_MBP, BENCH_PASSES passes,
+    its line checked by check_bench_line and logged."""
+    import shutil
+    try:
+        proc = run_bench(workdir, BENCH_MBP)
+        log("bench line: %s" % (proc.stdout.strip().splitlines() or [""])[-1])
+        line = check_bench_line("bench", proc, card)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log("bench: %g Mbp, %d reads, best of %s s: %r reads/s, setup %.2f s, "
+        "peak device memory %d B" % (
+            line["genome_mbp"], line["n_reads"], line["pass_s"],
+            line["value"], line["setup_s"], line["peak_device_bytes"]))
+    return line
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -3108,6 +3202,11 @@ def main():
                                     "smoke_past32"))
         log("phase 10 (past 2^32, three real slabs): %.2f s"
             % (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        record["bench"] = phase_bench(
+            card, os.path.join(HERE, "ngmlr_tpu_torch", "_build",
+                               "smoke_bench"))
+        log("phase 11 (the bench): %.2f s" % (time.perf_counter() - t0))
         # the launches of the one-chromosome run, the main path
         launches = record["mapping"]["launches"]
     except PhaseError as e:

@@ -55,7 +55,6 @@ import contextlib
 import json
 import os
 import resource
-import subprocess
 import sys
 import time
 
@@ -206,18 +205,6 @@ def read_names(path):
     """The record names of a FASTA, in order."""
     with open(path, "rb") as f:
         return [l[1:].split()[0] for l in f if l.startswith(b">")]
-
-
-def card_line():
-    """The card's name and power limit as nvidia-smi reports them."""
-    try:
-        r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                            "--format=csv,noheader"], capture_output=True,
-                           text=True, timeout=60)
-    except (OSError, subprocess.TimeoutExpired):
-        return "nvidia-smi unavailable"
-    return (r.stdout.strip().splitlines() or ["nvidia-smi unavailable"])[0] \
-        if r.returncode == 0 else "nvidia-smi unavailable"
 
 
 class Stopwatch:
@@ -473,7 +460,8 @@ def main():
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false: this script "
                            "runs the port on a CUDA card")
-    card = card_line()
+    import chip_smoke as cs
+    card = cs.card_line()
     workdir = os.environ.get("HUMAN_SCALE_DIR",
                              os.path.join(REPO, "_human_scale"))
     os.makedirs(workdir, exist_ok=True)

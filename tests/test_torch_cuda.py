@@ -1,8 +1,8 @@
 """The five CUDA kernels of the port against their plain PyTorch versions,
 the device candidate search against the host search, --nosse against the
 kernels' run, the oracle modules (ops/convex.py, ops/ungapped.py,
-ops/convex_ref.py) against the CPU and the engine, and the SV case of
-tests/test_native_engine.py:118, on the card. Marked ``cuda``: every
+ops/convex_ref.py) against the CPU and the engine, the SV case of
+tests/test_native_engine.py:118 and scripts/torch_bench.py, on the card. Marked ``cuda``: every
 test skips where torch sees no card. The file imports neither jax nor the test conftest, so it also runs on a
 machine with a card and no JAX:
 
@@ -23,8 +23,9 @@ from ngmlr_tpu_torch.ops import device_engine as tde  # noqa: E402
 from ngmlr_tpu_torch.ops import kernels as K  # noqa: E402
 from ngmlr_tpu_torch.ops.device_engine import _convex_kernel  # noqa: E402
 from chip_smoke import (BT_EDGES, CW_EDGES, FILL_EDGES,  # noqa: E402
-                        UNIT_PLANE, UNIT_PLANES, bt_edge_case, cw_edge_case,
-                        fill_edge_err, table_unit_files, unit_rows)
+                        UNIT_PLANE, UNIT_PLANES, bt_edge_case, card_line,
+                        check_bench_line, cw_edge_case, fill_edge_err,
+                        run_bench, table_unit_files, unit_rows)
 
 pytestmark = pytest.mark.cuda
 
@@ -677,3 +678,12 @@ def test_native_engine_matches_python_sv(dev, tmp_path, monkeypatch):
                      if not l.startswith(b"@PG")])
     assert outs[0] == outs[1]
     assert len(outs[0]) > 12
+
+
+def test_bench_on_the_card(dev, tmp_path):
+    """scripts/torch_bench.py pinned at 1 Mbp with 32 reads, its line held
+    as chip_smoke.py's phase 11 holds it."""
+    proc = run_bench(str(tmp_path), 1.0, BENCH_READS="32")
+    line = check_bench_line("bench", proc, card_line())
+    assert line["genome_mbp"] == 1.0 and line["n_reads"] == 32
+    assert len(line["pass_s"]) == 3 and line["peak_device_bytes"] > 0
