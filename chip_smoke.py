@@ -96,7 +96,19 @@ Phases, each printed with its wall time:
      reads/s above 0, >= 0.95 mapped, 0 < useful GCUPS <= padded, waves of
      the native engine, every kernel launched in the best pass (as often
      as check_launches wants, which the bench holds), on the card phase 1
-     read; the line is logged.
+     read; the line is logged;
+ 12. the SV-rich fuzz: the six seeds committed in tests/golden/torch_fuzz
+     (scripts/fuzz_vs_reference.py's datasets, 501-505 with -x pacbio and
+     506 with -x ont: a 500 kbp genome of two chromosomes with an N gap,
+     150 reads of eight kinds: short, clean and noisy long,
+     deletion-spanning, inversions, translocations, junk and N-gap spans)
+     mapped through scripts/torch_fuzz_vs_jax.py's map_seed with the
+     device search, the host search and the device search at 20-read
+     batches on one Pipeline, under NGMLR_TPU_STRICT=1: every SAM equal to
+     the JAX package's committed SAM byte for byte (@PG aside), every
+     mapping's launches its engine's record, all five kernels launched
+     over the device-search runs; each seed's reads, identical reads, SA:Z
+     and supplementary records, unmapped reads and map seconds logged.
 With --profile DIR, torch.profiler traces the first mapping of phases 4
 and 5 (device time by kernel and the busy share; in phase 4 also the
 launch shapes of corridor_windows, convex_fill and convex_backtrack and
@@ -105,10 +117,10 @@ wavefront). Then one JSON line
 listing every kernel, the card's line from nvidia-smi, and the final line
 {"ok": true, "device": {...}}.
 
-Every mapping run (each golden, each mapping of phases 4 to 7, 9 and 10; a
-process of phase 6's two-process run reports its own) sets the launch
-counters to 0 just before it drives the pipeline and reads them just
-after; each run's
+Every mapping run (each golden, each mapping of phases 4 to 7, 9, 10 and
+12; a process of phase 6's two-process run reports its own) sets the
+launch counters to 0 just before it drives the pipeline and reads them
+just after; each run's
 counts must equal the launches its own engine recorded (one score_fill per
 shard of each score wave, one launch of each convex kernel per shard of
 each align wave, a shard per wave off a mesh, one expand_votes per
@@ -1748,35 +1760,40 @@ def _run_on(p, reads_p):
     K.reset_launches()
     t0 = time.perf_counter()
     p.run(reads_p, buf)
-    torch.cuda.synchronize()
+    if p.ctx.device.type == "cuda":
+        torch.cuda.synchronize()
     return buf.getvalue(), time.perf_counter() - t0, dict(K.launches)
 
 
 def _run_counted(tag, p, reads_p):
     """_run_on, plus the run's own stats (the context's counters after it
-    less before it); its launches must equal its own waves, and no batch
-    may have left the device search. Returns (SAM, map s, launches,
-    stats)."""
+    less before it); on the card its launches must equal its own waves
+    (on the CPU the wrappers run their plain versions and launch none),
+    and no batch may have left the device search. Returns (SAM, map s,
+    launches, stats)."""
     before = dict(p.ctx.stats)
     p.stats = {"reads": 0, "mapped": 0, "unmapped": 0}
     out, t_run, launches = _run_on(p, reads_p)
     delta = {k: v - before.get(k, 0) for k, v in p.ctx.stats.items()
              if isinstance(v, (int, float)) and v != before.get(k, 0)}
-    check_launches(tag, launches, {"score_waves": 0, "align_waves": 0,
-                                   "score_launches": 0, "align_launches": 0,
-                                   "search_v2_launches": 0, **delta})
+    if p.ctx.device.type == "cuda":
+        check_launches(tag, launches, {
+            "score_waves": 0, "align_waves": 0, "score_launches": 0,
+            "align_launches": 0, "search_v2_launches": 0, **delta})
+    else:
+        check(not any(launches.values()), "%s: kernels launched on the "
+              "CPU: %s" % (tag, launches))
     fb = [k for k in delta if k.startswith("search_fallback_")]
     check(not fb, "%s: the device search handed batches back: %s"
           % (tag, fb))
     return out, t_run, launches, delta
 
 
-def other_search_run(tag, p, reads_p, out):
-    """Map the same reads again on the same Pipeline (index built once) with
-    the other candidate search: the host search where the gate chose the
-    device search, else a DeviceSearch built now (its build time is what the
-    device search adds to setup). Its SAM must equal the first run's, byte
-    for byte. Returns its numbers."""
+@contextlib.contextmanager
+def other_search(p):
+    """p with the other candidate search inside the block: the host search
+    where the gate chose the device search, else a DeviceSearch built now.
+    Yields (its search, the DeviceSearch's build s or None)."""
     import torch
     from ngmlr_tpu_torch.seed.device_search import DeviceSearch
     first = p.dev_search
@@ -1784,16 +1801,25 @@ def other_search_run(tag, p, reads_p, out):
     if first is None:
         t0 = time.perf_counter()
         p.dev_search = DeviceSearch(p.index, device=p.ctx.device)
-        torch.cuda.synchronize()
+        if p.ctx.device.type == "cuda":
+            torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
     else:
         p.dev_search = None
-    search = "host" if first is not None else "device"
     try:
-        other, t_run, launches, delta = _run_counted(
-            "%s, %s search" % (tag, search), p, reads_p)
+        yield ("host" if first is not None else "device"), build_s
     finally:
         p.dev_search = first
+
+
+def other_search_run(tag, p, reads_p, out):
+    """Map the same reads again on the same Pipeline (index built once) with
+    the other candidate search (other_search; a DeviceSearch's build time is
+    what the device search adds to setup). Its SAM must equal the first
+    run's, byte for byte. Returns its numbers."""
+    with other_search(p) as (search, build_s):
+        other, t_run, launches, delta = _run_counted(
+            "%s, %s search" % (tag, search), p, reads_p)
     rec = dict(search=search, device_search_build_s=build_s, map_s=t_run,
                reads_per_s=p.stats["reads"] / t_run,
                sam_identical=other == out, launches=launches, stats=delta)
@@ -3127,6 +3153,48 @@ def phase_bench(card, workdir):
     return line
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the SV-rich fuzz (scripts/torch_fuzz_vs_jax.py) against the JAX
+# package's SAMs committed in tests/golden/torch_fuzz
+# ---------------------------------------------------------------------------
+
+def phase_fuzz():
+    """Phase 12: each committed seed of scripts/torch_fuzz_vs_jax.py
+    (seeds 501-505 with -x pacbio, 506 with -x ont, 150 SV-rich reads on a
+    500 kbp genome of two chromosomes) through its fuzz_seeds on the card:
+    the default gate (the device search), the host search on the same
+    Pipeline and the device search at its small batches (two batches in
+    flight), each SAM equal to the committed JAX SAM byte for byte (@PG
+    aside), each mapping's launches its engine's record. Over the
+    device-search runs all five kernels launch. Returns the numbers of each
+    seed."""
+    import importlib.util
+    import torch
+    spec = importlib.util.spec_from_file_location(
+        "torch_fuzz_vs_jax", os.path.join(HERE, "scripts",
+                                          "torch_fuzz_vs_jax.py"))
+    F = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(F)
+    old = _env("NGMLR_TPU_DEVICE_SEARCH", None)
+    try:
+        code, seeds = F.fuzz_seeds(F.SAM_SEEDS, F.N_READS, "cuda", False)
+    finally:
+        _env("NGMLR_TPU_DEVICE_SEARCH", old)
+        torch.cuda.empty_cache()
+    check(code == 0, "the fuzz exited %d: %s" % (code, "; ".join(
+        f for r in seeds.values() for f in r["failures"]) or "see above"))
+    launched = dict.fromkeys(KERNELS, 0)
+    for rec in seeds.values():
+        for run in rec["runs"].values():
+            if run["search"] == "device":
+                for k in KERNELS:
+                    launched[k] += run["launches"][k]
+    check(all(launched[k] > 0 for k in KERNELS),
+          "the fuzz's device-search runs left a kernel unlaunched: %s"
+          % launched)
+    return {"seeds": seeds, "device_search_launches": launched}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -3134,6 +3202,9 @@ def main():
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="trace phases 4 and 5 with torch.profiler into DIR")
     args = ap.parse_args()
+    # the scripts this imports (phase 12's fuzz) import chip_smoke: let them
+    # find this module rather than load a second copy
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])
     if not os.path.isdir(os.path.join(HERE, "ngmlr_tpu_torch")):
         log("FAIL: ngmlr_tpu_torch/ not found beside chip_smoke.py; run it "
             "from a checkout of the repository")
@@ -3207,6 +3278,10 @@ def main():
             card, os.path.join(HERE, "ngmlr_tpu_torch", "_build",
                                "smoke_bench"))
         log("phase 11 (the bench): %.2f s" % (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        record["fuzz"] = phase_fuzz()
+        log("phase 12 (the SV-rich fuzz): %.2f s"
+            % (time.perf_counter() - t0))
         # the launches of the one-chromosome run, the main path
         launches = record["mapping"]["launches"]
     except PhaseError as e:

@@ -2,7 +2,9 @@
 the device candidate search against the host search, --nosse against the
 kernels' run, the oracle modules (ops/convex.py, ops/ungapped.py,
 ops/convex_ref.py) against the CPU and the engine, the SV case of
-tests/test_native_engine.py:118 and scripts/torch_bench.py, on the card. Marked ``cuda``: every
+tests/test_native_engine.py:118, scripts/torch_bench.py and the SV-rich
+fuzz (scripts/torch_fuzz_vs_jax.py) against the JAX package's committed
+SAM, on the card. Marked ``cuda``: every
 test skips where torch sees no card. The file imports neither jax nor the test conftest, so it also runs on a
 machine with a card and no JAX:
 
@@ -687,3 +689,24 @@ def test_bench_on_the_card(dev, tmp_path):
     line = check_bench_line("bench", proc, card_line())
     assert line["genome_mbp"] == 1.0 and line["n_reads"] == 32
     assert len(line["pass_s"]) == 3 and line["peak_device_bytes"] > 0
+
+
+def test_fuzz_seed_501_on_the_card(dev, tmp_path, monkeypatch):
+    """The first 48 reads of the SV-rich fuzz's seed 501, mapped three
+    ways on one Pipeline (the device search, the host search, the device
+    search at 20-read batches), each SAM equal to the committed JAX SAM's
+    prefix; map_seed holds each mapping's launches to its engine's
+    record."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import torch_fuzz_vs_jax as F
+    monkeypatch.delenv("NGMLR_TPU_DEVICE_SEARCH", raising=False)
+    want = F.committed_sam(501, "pacbio", 48)
+    ref, reads = F.dataset(501, 48, str(tmp_path))
+    p, _ = F.port_pipeline(ref, "pacbio")
+    assert p.dev_search is not None
+    runs = F.map_seed(p, reads)
+    assert [r["search"] for r in runs.values()] == ["device", "host",
+                                                     "device"]
+    for name, run in runs.items():
+        assert run["sam"] == want, name
+    assert runs["gate"]["launches"]["expand_votes"] > 0
