@@ -30,15 +30,18 @@ Phases, each printed with its wall time:
      about human chr21/22) and 256 PacBio-like 9 kb reads at ~15% error,
      with the default gate (the device search) through the native assembly
      engine; then the same Pipeline maps the reads again with the host
-     search, and the two SAMs must be equal byte for byte;
+     search, and the two SAMs must be equal byte for byte, and each equal
+     to the JAX package's (the per-read and whole-file digests of
+     tests/golden/torch_scale, dataset phase4; hold_to_jax);
   5. chromosome-1 scale: a seeded synthetic 250 Mbp genome (about human
      chr1) carrying a young-LINE-1-like repeat family, 256 such reads from
      outside its copies, and 2 reads from inside copies (one at ONT-like
      2% error, one PacBio-like), whose subreads there run the search's v1
      path and v2's reruns on the card; each read file maps with
      the device search and again with the host search on the same
-     Pipeline, byte-identical, and each file's first batch of candidates
-     equals the host search_batch subread by subread;
+     Pipeline, byte-identical, each SAM equal to the JAX package's
+     (datasets phase5 and phase5_repeats), and each file's first batch of
+     candidates equals the host search_batch subread by subread;
   6. scale-out and the debug surface: the nine --stdout dumps of
      tests/golden/dumps through the port's CLI, byte for byte; test_2 in
      serial mode (NGMLR_TPU_SYNC=1) equal to the pipelined run at 4-read
@@ -96,7 +99,9 @@ Phases, each printed with its wall time:
      reads/s above 0, >= 0.95 mapped, 0 < useful GCUPS <= padded, waves of
      the native engine, every kernel launched in the best pass (as often
      as check_launches wants, which the bench holds), on the card phase 1
-     read; the line is logged;
+     read; the line is logged; then the bench's 576 timed reads map once
+     in this process on its caches (device search, native engine, under
+     NGMLR_TPU_STRICT=1), the SAM equal to the JAX package's (bench30);
  12. the SV-rich fuzz: the six seeds committed in tests/golden/torch_fuzz
      (scripts/fuzz_vs_reference.py's datasets, 501-505 with -x pacbio and
      506 with -x ont: a 500 kbp genome of two chromosomes with an N gap,
@@ -108,7 +113,15 @@ Phases, each printed with its wall time:
      the JAX package's committed SAM byte for byte (@PG aside), every
      mapping's launches its engine's record, all five kernels launched
      over the device-search runs; each seed's reads, identical reads, SA:Z
-     and supplementary records, unmapped reads and map seconds logged.
+     and supplementary records, unmapped reads and map seconds logged;
+ 13. long SV reads: scripts/torch_scale_vs_jax.py's svlong (64 reads of
+     10-40 kb on phase 4's genome: clean, deletions of 1-20 kb, insertions
+     of 0.5-5 kb, inversions and tandem duplications of 1-10 kb, joins of
+     pieces >= 1 Mbp apart; 15% noise, half reverse-complemented) through
+     its map_both on a new Pipeline: the device search, then the host
+     search, under NGMLR_TPU_STRICT=1, the native engine's waves, each SAM
+     equal to the JAX package's (dataset svlong), convex_fill's lane
+     classes logged.
 With --profile DIR, torch.profiler traces the first mapping of phases 4
 and 5 (device time by kernel and the busy share; in phase 4 also the
 launch shapes of corridor_windows, convex_fill and convex_backtrack and
@@ -117,10 +130,10 @@ wavefront). Then one JSON line
 listing every kernel, the card's line from nvidia-smi, and the final line
 {"ok": true, "device": {...}}.
 
-Every mapping run (each golden, each mapping of phases 4 to 7, 9, 10 and
-12; a process of phase 6's two-process run reports its own) sets the
-launch counters to 0 just before it drives the pipeline and reads them
-just after; each run's
+Every mapping run (each golden, each mapping of phases 4 to 7, 9, 10,
+12 and 13, and phase 11's in-process one; a process of phase 6's
+two-process run reports its own) sets the launch counters to 0 just
+before it drives the pipeline and reads them just after; each run's
 counts must equal the launches its own engine recorded (one score_fill per
 shard of each score wave, one launch of each convex kernel per shard of
 each align wave, a shard per wave off a mesh, one expand_votes per
@@ -196,10 +209,12 @@ OPS_WALK_STEP = (3, 21)
 OPS_EXPAND_STEP = (0, 2)
 
 # phase 4: one chromosome (about human chr21/22) and PacBio-like reads
+MAPPING_SEED = 1234
 GENOME_MBP = 50.0
 N_READS = 256
 READ_LEN = 9000
 # phase 5: about human chr1
+LARGE_SEED = 2500
 LARGE_GENOME_MBP = 250.0
 # phase 5's genome carries one repeat family, about a young LINE-1
 # subfamily (full-length L1 is ~6 kb; young subfamilies hold hundreds of
@@ -1812,11 +1827,12 @@ def other_search(p):
         p.dev_search = first
 
 
-def other_search_run(tag, p, reads_p, out):
+def other_search_run(tag, p, reads_p, out, dataset=None):
     """Map the same reads again on the same Pipeline (index built once) with
     the other candidate search (other_search; a DeviceSearch's build time is
     what the device search adds to setup). Its SAM must equal the first
-    run's, byte for byte. Returns its numbers."""
+    run's, byte for byte, and, given a dataset, the JAX package's digests
+    (hold_to_jax). Returns its numbers."""
     with other_search(p) as (search, build_s):
         other, t_run, launches, delta = _run_counted(
             "%s, %s search" % (tag, search), p, reads_p)
@@ -1827,6 +1843,40 @@ def other_search_run(tag, p, reads_p, out):
                                                    json.dumps(rec)))
     check(rec["sam_identical"], "%s: the %s-search SAM differs"
           % (tag, search))
+    if dataset:
+        rec["jax"] = hold_to_jax("%s, %s search" % (tag, search), dataset,
+                                 other, reads_p)
+    return rec
+
+
+def _script(name):
+    """scripts/<name>.py as a module (the scripts import this one: main
+    registers it as chip_smoke, so they find it rather than load a second
+    copy)."""
+    import importlib
+    if os.path.join(HERE, "scripts") not in sys.path:
+        sys.path.insert(0, os.path.join(HERE, "scripts"))
+    return importlib.import_module(name)
+
+
+def hold_to_jax(tag, dataset, sam, reads_p):
+    """A SAM of the port held to the JAX package's digests of dataset
+    (scripts/torch_scale_vs_jax.py, tests/golden/torch_scale): every read's
+    records and the whole file after @PG. Returns the counts."""
+    S = _script("torch_scale_vs_jax")
+    want = S.load_digests()[dataset]
+    sam = S.fuzz.strip_pg(sam)
+    held = S.hold(want, sam, S.read_names(reads_p))
+    rec = {"dataset": dataset, "reads": held["reads"],
+           "identical": held["identical"], "diff": len(held["diff"]),
+           "file_identical": held["file_identical"]}
+    log("%s against the JAX package's %s digests: %s"
+        % (tag, dataset, json.dumps(rec)))
+    if held["diff"]:
+        log(S.diff_text(dataset, want, sam, held["diff"]).rstrip())
+    check(not held["diff"] and held["file_identical"],
+          "%s: %d reads differ from the JAX package's, file identical %s"
+          % (tag, len(held["diff"]), held["file_identical"]))
     return rec
 
 
@@ -1836,7 +1886,8 @@ def phase_mapping(genome_mbp, n_reads, read_len, workdir, profile_dir=None):
     numbers, (ref path, reads path, the device-search SAM))."""
     import torch
     ref_p, reads_p, _, origin = make_dataset(
-        np.random.default_rng(1234), genome_mbp, n_reads, read_len, workdir)
+        np.random.default_rng(MAPPING_SEED), genome_mbp, n_reads, read_len,
+        workdir)
     torch.cuda.reset_peak_memory_stats()
     p, t_setup = _pipeline(ref_p, reads_p)
     check(p.dev_search is not None, "the gate left the device search off")
@@ -1851,7 +1902,9 @@ def phase_mapping(genome_mbp, n_reads, read_len, workdir, profile_dir=None):
     for name in KERNELS:
         check(launches[name] > 0,
               "kernel %s was not launched on the main path" % name)
-    summary["host_search"] = other_search_run("mapping", p, reads_p, out)
+    summary["jax"] = hold_to_jax("mapping", "phase4", out, reads_p)
+    summary["host_search"] = other_search_run("mapping", p, reads_p, out,
+                                              "phase4")
     return summary, (ref_p, reads_p, out)
 
 
@@ -1914,8 +1967,8 @@ def phase_large_genome(genome_mbp, n_reads, read_len, workdir,
     equal to the host search_batch."""
     import torch
     ref_p, reads_p, rep_p, origin = make_dataset(
-        np.random.default_rng(2500), genome_mbp, n_reads, read_len, workdir,
-        repeats=True)
+        np.random.default_rng(LARGE_SEED), genome_mbp, n_reads, read_len,
+        workdir, repeats=True)
     torch.cuda.reset_peak_memory_stats()
     p, t_setup = _pipeline(ref_p, reads_p)
     check(p.dev_search is not None, "the gate left the device search off")
@@ -1935,7 +1988,9 @@ def phase_large_genome(genome_mbp, n_reads, read_len, workdir,
     for name in KERNELS:
         check(launches[name] > 0,
               "kernel %s was not launched on the large-genome path" % name)
-    summary["host_search"] = other_search_run("large genome", p, reads_p, out)
+    summary["jax"] = hold_to_jax("large genome", "phase5", out, reads_p)
+    summary["host_search"] = other_search_run("large genome", p, reads_p, out,
+                                              "phase5")
 
     # the repeat reads: v2 launch shapes, outliers and reruns on the card
     rep_out, rep_s, rep_launches, st = _run_counted("repeat reads", p, rep_p)
@@ -1953,7 +2008,10 @@ def phase_large_genome(genome_mbp, n_reads, read_len, workdir,
     check(st.get("search_v1_outliers", 0) > 0
           and st.get("search_v2_retry", 0) > 0,
           "the repeat reads missed the v1 search or v2's reruns")
-    rep["host_search"] = other_search_run("repeat reads", p, rep_p, rep_out)
+    rep["jax"] = hold_to_jax("repeat reads", "phase5_repeats", rep_out,
+                             rep_p)
+    rep["host_search"] = other_search_run("repeat reads", p, rep_p, rep_out,
+                                          "phase5_repeats")
     summary["repeat_reads"] = rep
     summary["first_batch"] = check_first_batch("large genome", p, reads_p)
     rep["first_batch"] = check_first_batch("repeat reads", p, rep_p)
@@ -3138,12 +3196,15 @@ def check_bench_line(tag, proc, card):
 
 def phase_bench(card, workdir):
     """Phase 11: scripts/torch_bench.py at BENCH_MBP, BENCH_PASSES passes,
-    its line checked by check_bench_line and logged."""
+    its line checked by check_bench_line and logged; then its timed reads
+    mapped once in this process (the device search, on the bench's caches)
+    and held to the JAX package's bench30 digests (bench_identity)."""
     import shutil
     try:
         proc = run_bench(workdir, BENCH_MBP)
         log("bench line: %s" % (proc.stdout.strip().splitlines() or [""])[-1])
         line = check_bench_line("bench", proc, card)
+        line["jax"] = bench_identity(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log("bench: %g Mbp, %d reads, best of %s s: %r reads/s, setup %.2f s, "
@@ -3151,6 +3212,42 @@ def phase_bench(card, workdir):
             line["genome_mbp"], line["n_reads"], line["pass_s"],
             line["value"], line["setup_s"], line["peak_device_bytes"]))
     return line
+
+
+def bench_identity(workdir):
+    """The bench's timed reads (its work directory under workdir, its
+    caches) mapped once through the port on the card under
+    NGMLR_TPU_STRICT=1, with the gate's device search and the native
+    engine, the SAM held to the JAX package's bench30 digests."""
+    import torch
+    from ngmlr_tpu_torch.ops import device_engine
+    S = _script("torch_scale_vs_jax")
+    d = os.path.join(workdir, os.path.basename(
+        S.bench.workdir_for(BENCH_MBP)))
+    ref_p, reads_p = os.path.join(d, "ref.fa"), os.path.join(d, "reads.fa")
+    old = _env("NGMLR_TPU_DEVICE_SEARCH", None)
+    try:
+        p, setup_s = S.port_pipeline(ref_p)
+    finally:
+        _env("NGMLR_TPU_DEVICE_SEARCH", old)
+    try:
+        check(p.dev_search is not None, "bench, in process: the gate left "
+              "the device search off")
+        run = S.map_once("bench, in process", p, reads_p)
+        S.check_native("bench, in process", p, run)
+        rec = hold_to_jax("bench, in process", "bench%d" % BENCH_MBP,
+                          run["sam"], reads_p)
+        rec.update(setup_s=setup_s, map_s=run["map_s"],
+                   launches=run["launches"],
+                   lane_classes=run["lane_classes"])
+        log("bench, in process: setup %.2f s (its caches), map %.2f s, "
+            "launches %s" % (setup_s, run["map_s"],
+                             json.dumps(run["launches"])))
+    finally:
+        device_engine.set_current(None)
+        del p
+        torch.cuda.empty_cache()
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -3168,13 +3265,8 @@ def phase_fuzz():
     aside), each mapping's launches its engine's record. Over the
     device-search runs all five kernels launch. Returns the numbers of each
     seed."""
-    import importlib.util
     import torch
-    spec = importlib.util.spec_from_file_location(
-        "torch_fuzz_vs_jax", os.path.join(HERE, "scripts",
-                                          "torch_fuzz_vs_jax.py"))
-    F = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(F)
+    F = _script("torch_fuzz_vs_jax")
     old = _env("NGMLR_TPU_DEVICE_SEARCH", None)
     try:
         code, seeds = F.fuzz_seeds(F.SAM_SEEDS, F.N_READS, "cuda", False)
@@ -3195,6 +3287,45 @@ def phase_fuzz():
     return {"seeds": seeds, "device_search_launches": launched}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: long SV reads on phase 4's genome (scripts/torch_scale_vs_jax.py's
+# svlong) against the JAX package's committed digests
+# ---------------------------------------------------------------------------
+
+def phase_svlong(main_path, workdir):
+    """Phase 13: svlong's 64 reads of 10-40 kb (clean, deletions,
+    insertions, inversions, tandem duplications, distant joins; 15% noise)
+    on phase 4's genome, through scripts/torch_scale_vs_jax.py's map_both
+    on a new Pipeline: the device search, then the host search, each under
+    NGMLR_TPU_STRICT=1 with its launches its engine's record and the native
+    engine's waves, every read and the whole file equal to the JAX
+    package's svlong digests. Returns each mapping's numbers."""
+    import torch
+    from ngmlr_tpu_torch.ops import device_engine
+    S = _script("torch_scale_vs_jax")
+    os.makedirs(workdir, exist_ok=True)
+    t0 = time.perf_counter()
+    reads_p = S.write_svlong(os.path.join(workdir, S.SV_FILE))
+    log("svlong: %d reads written in %.2f s"
+        % (S.SV_READS, time.perf_counter() - t0))
+    p, t_setup = _pipeline(main_path[0], reads_p)
+    want = S.load_digests()["svlong"]
+    try:
+        runs, failures = S.map_both(p, "svlong", reads_p, want)
+        rec = {m: S.report(r, t_setup) for m, r in runs.items()}
+        for m, r in rec.items():
+            log("svlong, %s: %s" % (m, json.dumps(r)))
+            if runs[m]["diff"]:
+                log(S.diff_text("svlong", want, runs[m]["sam"],
+                                runs[m]["diff"]).rstrip())
+    finally:
+        device_engine.set_current(None)
+        del p
+        torch.cuda.empty_cache()
+    check(not failures, "; ".join(failures))
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -3202,7 +3333,7 @@ def main():
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="trace phases 4 and 5 with torch.profiler into DIR")
     args = ap.parse_args()
-    # the scripts this imports (phase 12's fuzz) import chip_smoke: let them
+    # the scripts this imports (phases 4, 5 and 11-13) import chip_smoke: let them
     # find this module rather than load a second copy
     sys.modules.setdefault("chip_smoke", sys.modules[__name__])
     if not os.path.isdir(os.path.join(HERE, "ngmlr_tpu_torch")):
@@ -3281,6 +3412,12 @@ def main():
         t0 = time.perf_counter()
         record["fuzz"] = phase_fuzz()
         log("phase 12 (the SV-rich fuzz): %.2f s"
+            % (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        record["svlong"] = phase_svlong(
+            main_path, os.path.join(HERE, "ngmlr_tpu_torch", "_build",
+                                    "smoke_svlong"))
+        log("phase 13 (long SV reads against the JAX package): %.2f s"
             % (time.perf_counter() - t0))
         # the launches of the one-chromosome run, the main path
         launches = record["mapping"]["launches"]

@@ -297,6 +297,31 @@ def jax_argv(ref, reads, out, preset):
             "--no-progress"]
 
 
+def run_jax_cli(ref, reads, out, preset, what):
+    """`python -m ngmlr_tpu` (jax_argv) in a subprocess on the CPU
+    (JAX_PLATFORMS=cpu), single-threaded, writing out. Returns the child's
+    {"wall_s", "cpu_s" (user + system), "peak_rss_gb"}; raises RuntimeError
+    with the end of its stderr where it exits non-zero."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+               XLA_FLAGS="--xla_cpu_multi_thread_eigen=false")
+    with tempfile.TemporaryFile() as err:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(jax_argv(ref, reads, out, preset), cwd=REPO,
+                                env=env, stdout=subprocess.DEVNULL,
+                                stderr=err)
+        # wait4, not wait: the child's own CPU seconds and peak RSS
+        _, status, ru = os.wait4(proc.pid, 0)
+        proc.returncode = os.waitstatus_to_exitcode(status)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            err.seek(0)
+            raise RuntimeError("python -m ngmlr_tpu exited %d on %s: %s"
+                               % (proc.returncode, what,
+                                  err.read().decode()[-2000:]))
+    return {"wall_s": wall, "cpu_s": ru.ru_utime + ru.ru_stime,
+            "peak_rss_gb": ru.ru_maxrss / 2 ** 20}
+
+
 def run_jax(seed, preset, n_reads, workdir=None):
     """The JAX package's SAM (@PG stripped) of the dataset, from `python -m
     ngmlr_tpu` in a subprocess on the CPU, single-threaded."""
@@ -304,14 +329,8 @@ def run_jax(seed, preset, n_reads, workdir=None):
                                      dir=workdir) as d:
         ref, reads = dataset(seed, n_reads, d)
         out = os.path.join(d, "jax.sam")
-        env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
-                   XLA_FLAGS="--xla_cpu_multi_thread_eigen=false")
-        r = subprocess.run(jax_argv(ref, reads, out, preset), cwd=REPO,
-                           env=env, capture_output=True)
-        if r.returncode != 0:
-            raise RuntimeError("python -m ngmlr_tpu exited %d on seed %d "
-                               "(%s): %s" % (r.returncode, seed, preset,
-                                             r.stderr.decode()[-2000:]))
+        run_jax_cli(ref, reads, out, preset,
+                    "seed %d (%s)" % (seed, preset))
         with open(out, "rb") as f:
             return strip_pg(f.read())
 

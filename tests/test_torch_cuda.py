@@ -2,9 +2,11 @@
 the device candidate search against the host search, --nosse against the
 kernels' run, the oracle modules (ops/convex.py, ops/ungapped.py,
 ops/convex_ref.py) against the CPU and the engine, the SV case of
-tests/test_native_engine.py:118, scripts/torch_bench.py and the SV-rich
+tests/test_native_engine.py:118, scripts/torch_bench.py, the SV-rich
 fuzz (scripts/torch_fuzz_vs_jax.py) against the JAX package's committed
-SAM, on the card. Marked ``cuda``: every
+SAM, and phase 4's reads and the long SV reads on its genome
+(scripts/torch_scale_vs_jax.py) against the JAX package's committed
+digests, on the card. Marked ``cuda``: every
 test skips where torch sees no card. The file imports neither jax nor the test conftest, so it also runs on a
 machine with a card and no JAX:
 
@@ -710,3 +712,24 @@ def test_fuzz_seed_501_on_the_card(dev, tmp_path, monkeypatch):
     for name, run in runs.items():
         assert run["sam"] == want, name
     assert runs["gate"]["launches"]["expand_votes"] > 0
+
+
+def test_scale_script_holds_phase4_and_svlong_on_the_card(dev, tmp_path,
+                                                         monkeypatch):
+    """scripts/torch_scale_vs_jax.py's card mode on phase4 and svlong: each
+    mapped with the device search and the host search on one Pipeline,
+    every read and the whole file equal to the JAX package's digests, the
+    native engine's waves, launches its engine's record."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import torch_scale_vs_jax as S
+    monkeypatch.delenv("NGMLR_TPU_DEVICE_SEARCH", raising=False)
+    code, rec = S.scale_datasets({"phase4", "svlong"}, "cuda", None,
+                                 str(tmp_path), S.load_digests())
+    assert code == 0
+    for name in ("phase4", "svlong"):
+        runs = rec[name]
+        assert [r["search"] for r in runs.values()] == ["device", "host"]
+        for r in runs.values():
+            assert r["diff"] == 0 and r["file_identical"]
+            assert r["identical"] == r["reads"] > 0
+        assert runs["gate"]["launches"]["expand_votes"] > 0
