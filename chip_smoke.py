@@ -121,7 +121,19 @@ Phases, each printed with its wall time:
      its map_both on a new Pipeline: the device search, then the host
      search, under NGMLR_TPU_STRICT=1, the native engine's waves, each SAM
      equal to the JAX package's (dataset svlong), convex_fill's lane
-     classes logged.
+     classes logged;
+ 14. ultra-long reads: the script's ultralong (36 reads of 50-250 kb on
+     phase 4's genome, svlong's kinds at larger events, 8-15% noise)
+     through map_both as in phase 13, every read and the file held to the
+     JAX package's digests (dataset ultralong); the fill's lane classes
+     (R=8 and the wide kernel), its largest launch's direction bytes (4
+     GiB, DIRS_CAP's limit), the rows DIRS_CAP refused and the peak device
+     memory logged; every kernel launched, the phase's launches on the
+     kernels line (ultralong_launches). In phases 13 and 14 the largest
+     align launch's first row is then copied into each of its slots and
+     launched again: each slot's ops and scalars equal the first row's in
+     the mapping (in phase 14 the last slots' direction bytes lie past
+     2^31).
 With --profile DIR, torch.profiler traces the first mapping of phases 4
 and 5 (device time by kernel and the busy share; in phase 4 also the
 launch shapes of corridor_windows, convex_fill and convex_backtrack and
@@ -131,7 +143,7 @@ listing every kernel, the card's line from nvidia-smi, and the final line
 {"ok": true, "device": {...}}.
 
 Every mapping run (each golden, each mapping of phases 4 to 7, 9, 10,
-12 and 13, and phase 11's in-process one; a process of phase 6's
+12 to 14, and phase 11's in-process one; a process of phase 6's
 two-process run reports its own) sets the launch counters to 0 just
 before it drives the pipeline and reads them just after; each run's
 counts must equal the launches its own engine recorded (one score_fill per
@@ -142,7 +154,8 @@ mappings of phases 4, 5 and 9 must launch all five. On the mesh,
 mesh_problems_psum must equal the real problems handed to the waves,
 counted on the host before the split.
 The kernels line carries the counts of phase 4's first mapping, the
-main path; the comparisons of phase 2 count nowhere. Any failed phase
+main path, and under ultralong_launches those of phase 14's two
+mappings; the comparisons of phase 2 count nowhere. Any failed phase
 exits non-zero without the final line. Needs one CUDA card, nvcc and the
 repository checkout (it imports ngmlr_tpu_torch from beside this file).
 """
@@ -231,7 +244,7 @@ REPEAT_COPIES = 1000
 REPEAT_DIV = 0.005
 REPEAT_READS = 2
 REPEAT_READ_ERR = 0.02
-KERNELS = ("score_fill", "corridor_windows", "convex_fill",
+KERNELS =("score_fill", "corridor_windows", "convex_fill",
            "convex_backtrack", "expand_votes")
 
 
@@ -3288,37 +3301,99 @@ def phase_fuzz():
 
 
 # ---------------------------------------------------------------------------
-# phase 13: long SV reads on phase 4's genome (scripts/torch_scale_vs_jax.py's
-# svlong) against the JAX package's committed digests
+# phases 13 and 14: long SV reads and ultra-long reads on phase 4's genome
+# (scripts/torch_scale_vs_jax.py's svlong and ultralong) against the JAX
+# package's committed digests
 # ---------------------------------------------------------------------------
 
-def phase_svlong(main_path, workdir):
-    """Phase 13: svlong's 64 reads of 10-40 kb (clean, deletions,
-    insertions, inversions, tandem duplications, distant joins; 15% noise)
-    on phase 4's genome, through scripts/torch_scale_vs_jax.py's map_both
-    on a new Pipeline: the device search, then the host search, each under
-    NGMLR_TPU_STRICT=1 with its launches its engine's record and the native
-    engine's waves, every read and the whole file equal to the JAX
-    package's svlong digests. Returns each mapping's numbers."""
+@contextlib.contextmanager
+def largest_align_launch():
+    """Keeps, while inside, the arguments and outputs of the largest call
+    of device_engine._convex_kernel (by its B x (Wp + Hp) x L direction
+    bytes). Yields {"bytes", "args", "out"}."""
+    from ngmlr_tpu_torch.ops import device_engine
+    seen = {"bytes": 0}
+    orig = device_engine._convex_kernel
+    lock = threading.Lock()
+
+    def ck(genome, readbuf, pk, params, Wp, Hp, L, plain=False):
+        out = orig(genome, readbuf, pk, params, Wp=Wp, Hp=Hp, L=L,
+                   plain=plain)
+        n = int(pk.shape[0]) * (Wp + Hp) * L
+        with lock:
+            if n > seen["bytes"]:
+                seen.update(bytes=n, out=out,
+                            args=(genome, readbuf, pk, params, Wp, Hp, L))
+        return out
+    device_engine._convex_kernel = ck
+    try:
+        yield seen
+    finally:
+        device_engine._convex_kernel = orig
+
+
+def replay_rows(seen):
+    """The largest align launch's first row (a real one: the slots past a
+    wave's rows are the padding) copied into each of its B slots and
+    launched again: past B x TpP x L = 2^31 the rows at the end address
+    direction bytes past 2^31 in convex_fill and convex_backtrack. Every
+    row's packed ops and scalars must equal the first row's in the
+    mapping's own launch. Returns the launch's numbers."""
+    import torch
+    from ngmlr_tpu_torch.ops import device_engine
+    genome, readbuf, pk, params, Wp, Hp, L = seen["args"]
+    B = int(pk.shape[0])
+    packed, scalars = device_engine._convex_kernel(
+        genome, readbuf, pk[:1].repeat(B, 1), params, Wp=Wp, Hp=Hp, L=L)
+    packed = packed.reshape(B, -1)
+    want_p = seen["out"][0].reshape(B, -1)[0]
+    want_s = seen["out"][1][0]
+    bad = [b for b in range(B) if not (torch.equal(packed[b], want_p)
+                                       and torch.equal(scalars[b], want_s))]
+    rec = {"shape": [B, Wp + Hp, L], "dirs_bytes": seen["bytes"],
+           "last_row_from": (B - 1) * (Wp + Hp) * L,
+           "rows_equal": B - len(bad)}
+    check(not bad, "the largest align launch's row, copied into slots %s of "
+          "%s, gave other ops or scalars" % (bad, rec["shape"]))
+    return rec
+
+
+def phase_long_reads(main_path, workdir, dataset):
+    """Phases 13 and 14: a dataset of scripts/torch_scale_vs_jax.py on phase
+    4's genome (svlong: 64 SV reads of 10-40 kb; ultralong: 36 reads of
+    50-250 kb, the same kinds), written from its seed, through the
+    script's map_both on a new Pipeline: the device search, then the host
+    search, each under NGMLR_TPU_STRICT=1 with its launches its engine's
+    record and the native engine's waves, every read and the whole file
+    equal to the JAX package's digests; then replay_rows on the largest
+    align launch of the two. Returns each mapping's numbers and the
+    replay's."""
     import torch
     from ngmlr_tpu_torch.ops import device_engine
     S = _script("torch_scale_vs_jax")
     os.makedirs(workdir, exist_ok=True)
     t0 = time.perf_counter()
-    reads_p = S.write_svlong(os.path.join(workdir, S.SV_FILE))
-    log("svlong: %d reads written in %.2f s"
-        % (S.SV_READS, time.perf_counter() - t0))
+    fname = S.DATASETS[dataset][1]
+    reads_p = dict(S.PHASE4_EXTRA)[fname](os.path.join(workdir, fname))
+    log("%s: %d reads written in %.2f s"
+        % (dataset, len(S.read_names(reads_p)), time.perf_counter() - t0))
     p, t_setup = _pipeline(main_path[0], reads_p)
-    want = S.load_digests()["svlong"]
+    want = S.load_digests()[dataset]
     try:
-        runs, failures = S.map_both(p, "svlong", reads_p, want)
+        with largest_align_launch() as largest:
+            runs, failures = S.map_both(p, dataset, reads_p, want)
         rec = {m: S.report(r, t_setup) for m, r in runs.items()}
         for m, r in rec.items():
-            log("svlong, %s: %s" % (m, json.dumps(r)))
+            log("%s, %s: %s" % (dataset, m, json.dumps(r)))
             if runs[m]["diff"]:
-                log(S.diff_text("svlong", want, runs[m]["sam"],
+                log(S.diff_text(dataset, want, runs[m]["sam"],
                                 runs[m]["diff"]).rstrip())
+        if not failures:
+            rec["replay"] = replay_rows(largest)
+            log("%s, the largest align launch's first row in all its "
+                "slots: %s" % (dataset, json.dumps(rec["replay"])))
     finally:
+        largest.clear()
         device_engine.set_current(None)
         del p
         torch.cuda.empty_cache()
@@ -3333,7 +3408,7 @@ def main():
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="trace phases 4 and 5 with torch.profiler into DIR")
     args = ap.parse_args()
-    # the scripts this imports (phases 4, 5 and 11-13) import chip_smoke: let them
+    # the scripts this imports (phases 4, 5 and 11-14) import chip_smoke: let them
     # find this module rather than load a second copy
     sys.modules.setdefault("chip_smoke", sys.modules[__name__])
     if not os.path.isdir(os.path.join(HERE, "ngmlr_tpu_torch")):
@@ -3414,10 +3489,21 @@ def main():
         log("phase 12 (the SV-rich fuzz): %.2f s"
             % (time.perf_counter() - t0))
         t0 = time.perf_counter()
-        record["svlong"] = phase_svlong(
+        record["svlong"] = phase_long_reads(
             main_path, os.path.join(HERE, "ngmlr_tpu_torch", "_build",
-                                    "smoke_svlong"))
+                                    "smoke_svlong"), "svlong")
         log("phase 13 (long SV reads against the JAX package): %.2f s"
+            % (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        record["ultralong"] = phase_long_reads(
+            main_path, os.path.join(HERE, "ngmlr_tpu_torch", "_build",
+                                    "smoke_ultralong"), "ultralong")
+        launched = {k: sum(record["ultralong"][m]["launches"][k]
+                           for m in ("gate", "other search"))
+                    for k in KERNELS}
+        check(all(launched.values()), "phase 14 left a kernel unlaunched: "
+              "%s" % launched)
+        log("phase 14 (ultra-long reads against the JAX package): %.2f s"
             % (time.perf_counter() - t0))
         # the launches of the one-chromosome run, the main path
         launches = record["mapping"]["launches"]
@@ -3429,9 +3515,11 @@ def main():
     for name in KERNELS:
         r = dict(kern[name])
         r["launches"] = launches[name]
+        r["ultralong_launches"] = launched[name]
         line["kernels"].append({k: r[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "ultralong_launches")})
     record["kernels"] = line["kernels"]
     record["total_s"] = time.perf_counter() - t_all
     _dump(args.out, record)

@@ -182,16 +182,17 @@ def search_batch(index: KmerIndex, seqs: List[bytes], sensitivity: float = 0.8,
 
     # --- emergence (rList crossing), fully vectorized ----------------------
     # Per-subread running max of vote counts with per-segment reset: add
-    # sub_idx * OFFSET (exact in f64 for these magnitudes) so the
-    # accumulate never carries across subreads.
+    # sub_idx * OFFSET so the accumulate never carries across subreads.
+    # In int64, exact for any batch; ngmlr_tpu adds in f64, which rounds
+    # the counts once sub_idx * 2^40 passes 2^53 (from the 8,193rd subread
+    # of a batch on), so a subread's candidates there depend on its batch.
     resolve_off = (1 << (bin_size - 1)) if bin_size > 0 else 0
     n_seqs = len(seqs)
     sub_bounds = np.searchsorted(v_sub, np.arange(n_seqs + 1))
     counts_f = count_after.astype(np.float32)
 
-    OFF = np.float64(1 << 40)
-    run_max = (np.maximum.accumulate(count_after.astype(np.float64)
-                                     + v_sub * OFF)
+    OFF = np.int64(1) << 40
+    run_max = (np.maximum.accumulate(count_after + v_sub * OFF)
                - v_sub * OFF).astype(np.float32)
     thresh = run_max * sens                           # f32 (AddLocationStd)
     crossing = counts_f >= thresh

@@ -297,13 +297,14 @@ def jax_argv(ref, reads, out, preset):
             "--no-progress"]
 
 
-def run_jax_cli(ref, reads, out, preset, what):
+def run_jax_cli(ref, reads, out, preset, what, env=None):
     """`python -m ngmlr_tpu` (jax_argv) in a subprocess on the CPU
-    (JAX_PLATFORMS=cpu), single-threaded, writing out. Returns the child's
-    {"wall_s", "cpu_s" (user + system), "peak_rss_gb"}; raises RuntimeError
-    with the end of its stderr where it exits non-zero."""
+    (JAX_PLATFORMS=cpu), single-threaded, writing out, with env's
+    variables added. Returns the child's {"wall_s", "cpu_s" (user +
+    system), "peak_rss_gb"}; raises RuntimeError with the end of its
+    stderr where it exits non-zero."""
     env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
-               XLA_FLAGS="--xla_cpu_multi_thread_eigen=false")
+               XLA_FLAGS="--xla_cpu_multi_thread_eigen=false", **(env or {}))
     with tempfile.TemporaryFile() as err:
         t0 = time.perf_counter()
         proc = subprocess.Popen(jax_argv(ref, reads, out, preset), cwd=REPO,

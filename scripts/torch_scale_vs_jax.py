@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """The port's real-size datasets (chip_smoke.py's phases 4 and 5, the bench
-ladder of scripts/torch_bench.py, long SV reads on phase 4's genome) through
+ladder of scripts/torch_bench.py, long SV reads and ultra-long reads on
+phase 4's genome) through
 the PyTorch/CUDA port (ngmlr_tpu_torch), held read for read and file for
 file against the JAX package's SAM digests.
 
     python3 scripts/torch_scale_vs_jax.py [--device cuda|cpu] [--reads N]
-        [DATASET...]
+        [--test8] [DATASET...]
     python3 scripts/torch_scale_vs_jax.py --write-jax tests/golden/torch_scale
         [--jobs J] [DATASET...]
 
@@ -19,6 +20,15 @@ The datasets (DATASETS; each made from its seed by the port's generators):
                   in turn; fuzz_vs_reference's pacbio_noise at 15%, half
                   reverse-complemented; each read named by its kind and
                   source positions
+  ultralong       36 reads of 50-250 kb (log-uniform) on phase 4's genome
+                  (make_ultralong, its own seed; scripts/
+                  make_ultralong_golden.py's read scale): svlong's kinds
+                  in turn at a 1-30 kb deletion, a 0.5-10 kb insertion, a
+                  0.4-10 kb inversion, a 1-10 kb tandem duplication;
+                  pacbio_noise at a rate drawn in 8-15% a read, half
+                  reverse-complemented, named as svlong's. Cut: the genome
+                  is 50 Mbp, not a human 3 Gbp (per read, the fill's lane
+                  classes and direction planes do not depend on it)
   phase5          chip_smoke.make_dataset(default_rng(2500), 250.0, 256,
                   9000, repeats=True): 250 Mbp with a repeat family, the
                   256 reads outside its copies
@@ -42,12 +52,18 @@ waves > 0: the runner otherwise drops in silence to the Python path).
 Every read's records, and the whole file after @PG, must equal the
 committed digests of tests/golden/torch_scale/digests.tsv.gz. --reads N
 maps the first N reads of each dataset and holds those reads alone.
-Reports each dataset's seconds, launches per kernel and convex_fill's lane
-counts by class; a differing read prints the port's records, the read's
+Reports each mapping's seconds, launches per kernel, convex_fill's calls
+by lane count and class, its largest call's direction planes (B x TpP x L
+bytes), the align rows refused by DIRS_CAP, lane_bound_retries and the
+peak device memory (align_shapes: the script wraps the fill and the align
+dispatch; the package counts neither); a differing read prints the
+port's records, the read's
 kind and source positions and the JAX package's digest (and, where the
 JAX package is importable, its records, from `python -m ngmlr_tpu` on
-those reads alone). Exits 1 on any differing read or broken rule, 2 where a
-dataset has no committed digests.
+those reads alone). --test8 also maps tests/data/test_8 once (the
+reference binary's ultra-long golden) against its golden, with the same
+numbers. Exits 1 on any differing read or broken rule, 2 where a dataset
+has no committed digests.
 
 --write-jax DIR runs `JAX_PLATFORMS=cpu python -m ngmlr_tpu -r ref.fa -q
 reads.fa -o out.sam -t 1 -x pacbio --skip-write --no-progress` on each
@@ -95,9 +111,30 @@ SV_READS = 64
 SV_LEN = (10_000, 40_000)
 SV_KINDS = ("clean", "del", "ins", "inv", "dup", "join")
 SV_FILE = "svlong.fa"
+# event sizes in bases (bounds inclusive) by kind
+SV_SIZES = {"del": (1_000, 20_000), "ins": (500, 5_000),
+            "inv": (1_000, 10_000), "dup": (1_000, 10_000)}
 JOIN_MIN = 1_000_000
 
+# ultra-long reads (scripts/make_ultralong_golden.py's scale) on phase 4's
+# genome, svlong's kinds at larger event sizes
+UL_SEED = 5050
+UL_READS = 36
+UL_LEN = (50_000, 250_000)
+UL_SIZES = {"del": (1_000, 30_000), "ins": (500, 10_000),
+            "inv": (400, 10_000), "dup": (1_000, 10_000)}
+UL_ERR = (0.08, 0.15)
+UL_FILE = "ultralong.fa"
+
 BENCH_MBP = (30, 100, 300, 1000, 3000)
+
+# the JAX package's added environment by dataset (--write-jax): ultralong's
+# one intake batch holds 20,520 subreads, past the 8,192 from which
+# ngmlr_tpu's host search_batch rounds the per-subread running maximum of
+# its votes (ngmlr_tpu/seed/candidates.py:192-195; ROADMAP section 3), so
+# its digests come from the JAX package's device search, which keeps each
+# subread apart as the reference's does
+JAX_ENV = {"ultralong": {"NGMLR_TPU_DEVICE_SEARCH": "1"}}
 
 # dataset -> (genome, its reads file, the generator call)
 DATASETS = {
@@ -111,6 +148,14 @@ DATASETS = {
                "kinds %s in turn, pacbio_noise 0.15, on phase4's ref.fa"
                % (SV_SEED, SV_READS, SV_LEN[0], SV_LEN[1],
                   "/".join(SV_KINDS))),
+    "ultralong": ("phase4", UL_FILE,
+                  "scripts/torch_scale_vs_jax.py make_ultralong(np.random."
+                  "default_rng(%d), phase 4's genome): %d reads of %d-%d bp "
+                  "(log-uniform), kinds %s in turn, pacbio_noise at a rate "
+                  "uniform in %g-%g, on phase4's ref.fa (50 Mbp: the one cut "
+                  "from a 3 Gbp human genome)"
+                  % (UL_SEED, UL_READS, UL_LEN[0], UL_LEN[1],
+                     "/".join(SV_KINDS), UL_ERR[0], UL_ERR[1])),
     "phase5": ("phase5", "reads.fa",
                "chip_smoke.make_dataset(np.random.default_rng(%d), %r, %d, "
                "%d, dir, repeats=True): reads.fa"
@@ -136,71 +181,104 @@ LANE_CLASSES = ((768, "R=2"), (2048, "R=4"), (4096, "R=8"),
 # ---------------------------------------------------------------------------
 # the datasets
 
-def make_svlong(rng, genome, path):
-    """SV_READS reads of SV_LEN bases (before the noise) on genome (ASCII
-    ACGT), the kinds of SV_KINDS in turn, each through the fuzz's
-    pacbio_noise at 15% and reverse-complemented with probability 1/2,
-    written to path as FASTA. A name gives the read's number, kind, source
-    pieces (start-end, 0-based, end exclusive) and strand."""
+def sv_read(rng, genome, kind, L, sizes):
+    """One read's source before the noise: L bases of genome (ASCII ACGT)
+    carrying kind's event, its size drawn from sizes[kind] (bounds
+    inclusive; dup's top is also held to (L - 2000) // 2). Returns (kind,
+    with ins's length, source pieces (start, end), bases)."""
     glen = len(genome)
 
     def piece(a, b):
         return genome[a:b].tobytes()
+    lo, hi = sizes.get(kind, (0, 0))
+    if kind == "clean":
+        p = int(rng.integers(0, glen - L))
+        parts = [(p, p + L)]
+        seq = piece(p, p + L)
+    elif kind == "del":
+        D = int(rng.integers(lo, hi + 1))
+        a = L // 2
+        p = int(rng.integers(0, glen - L - D))
+        parts = [(p, p + a), (p + a + D, p + L + D)]
+        seq = piece(*parts[0]) + piece(*parts[1])
+    elif kind == "ins":
+        n_ins = int(rng.integers(lo, hi + 1))
+        flank = L - n_ins
+        a = flank // 2
+        p = int(rng.integers(0, glen - flank))
+        parts = [(p, p + a), (p + a, p + flank)]
+        ins = cs.make_genome(rng, n_ins).tobytes()
+        seq = piece(*parts[0]) + ins + piece(*parts[1])
+        kind = "ins%d" % n_ins
+    elif kind == "inv":
+        V = int(rng.integers(lo, hi + 1))
+        a = (L - V) // 2
+        p = int(rng.integers(0, glen - L))
+        parts = [(p, p + a), (p + a, p + a + V), (p + a + V, p + L)]
+        seq = (piece(*parts[0]) + fuzz.revcomp(piece(*parts[1]))
+               + piece(*parts[2]))
+    elif kind == "dup":
+        U = int(rng.integers(lo, min(hi, (L - 2_000) // 2) + 1))
+        a = (L - 2 * U) // 2
+        span = L - U
+        p = int(rng.integers(0, glen - span))
+        parts = [(p, p + a + U), (p + a, p + span)]
+        seq = piece(*parts[0]) + piece(*parts[1])
+    else:                                   # a distant join
+        a = L // 2
+        p1 = int(rng.integers(0, glen - a))
+        p2 = int(rng.integers(0, glen - (L - a)))
+        while abs(p2 - p1) < JOIN_MIN:
+            p2 = int(rng.integers(0, glen - (L - a)))
+        parts = [(p1, p1 + a), (p2, p2 + L - a)]
+        seq = piece(*parts[0]) + piece(*parts[1])
+    return kind, parts, seq
+
+
+def write_sv_read(f, rng, prefix, i, kind, parts, seq, err):
+    """seq through the fuzz's pacbio_noise at err, reverse-complemented
+    with probability 1/2, written to f as a FASTA record named by the
+    read's number, kind, source pieces (start-end, 0-based, end exclusive)
+    and strand."""
+    seq = fuzz.pacbio_noise(rng, seq, err)
+    rc = rng.random() < 0.5
+    if rc:
+        seq = fuzz.revcomp(seq)
+    name = "%s%d_%s_%s_%s" % (prefix, i, kind, "_".join(
+        "%d-%d" % ab for ab in parts), "rev" if rc else "fwd")
+    f.write(b">" + name.encode() + b"\n")
+    for j in range(0, len(seq), 80):
+        f.write(seq[j:j + 80] + b"\n")
+
+
+def make_svlong(rng, genome, path):
+    """SV_READS reads of SV_LEN bases (before the noise) on genome (ASCII
+    ACGT), the kinds of SV_KINDS in turn (event sizes SV_SIZES), each
+    through the fuzz's pacbio_noise at 15% and reverse-complemented with
+    probability 1/2, written to path as FASTA (write_sv_read's names)."""
     with open(path, "wb") as f:
         for i in range(SV_READS):
             kind = SV_KINDS[i % len(SV_KINDS)]
             L = int(rng.integers(SV_LEN[0], SV_LEN[1] + 1))
-            if kind == "clean":
-                p = int(rng.integers(0, glen - L))
-                parts = [(p, p + L)]
-                seq = piece(p, p + L)
-            elif kind == "del":
-                D = int(rng.integers(1_000, 20_001))
-                a = L // 2
-                p = int(rng.integers(0, glen - L - D))
-                parts = [(p, p + a), (p + a + D, p + L + D)]
-                seq = piece(*parts[0]) + piece(*parts[1])
-            elif kind == "ins":
-                n_ins = int(rng.integers(500, 5_001))
-                flank = L - n_ins
-                a = flank // 2
-                p = int(rng.integers(0, glen - flank))
-                parts = [(p, p + a), (p + a, p + flank)]
-                ins = cs.make_genome(rng, n_ins).tobytes()
-                seq = piece(*parts[0]) + ins + piece(*parts[1])
-                kind = "ins%d" % n_ins
-            elif kind == "inv":
-                V = int(rng.integers(1_000, 10_001))
-                a = (L - V) // 2
-                p = int(rng.integers(0, glen - L))
-                parts = [(p, p + a), (p + a, p + a + V), (p + a + V, p + L)]
-                seq = (piece(*parts[0]) + fuzz.revcomp(piece(*parts[1]))
-                       + piece(*parts[2]))
-            elif kind == "dup":
-                U = int(rng.integers(1_000, min(10_000, (L - 2_000) // 2)
-                                     + 1))
-                a = (L - 2 * U) // 2
-                span = L - U
-                p = int(rng.integers(0, glen - span))
-                parts = [(p, p + a + U), (p + a, p + span)]
-                seq = piece(*parts[0]) + piece(*parts[1])
-            else:                               # a distant join
-                a = L // 2
-                p1 = int(rng.integers(0, glen - a))
-                p2 = int(rng.integers(0, glen - (L - a)))
-                while abs(p2 - p1) < JOIN_MIN:
-                    p2 = int(rng.integers(0, glen - (L - a)))
-                parts = [(p1, p1 + a), (p2, p2 + L - a)]
-                seq = piece(*parts[0]) + piece(*parts[1])
-            seq = fuzz.pacbio_noise(rng, seq, 0.15)
-            rc = rng.random() < 0.5
-            if rc:
-                seq = fuzz.revcomp(seq)
-            name = "sv%d_%s_%s_%s" % (i, kind, "_".join(
-                "%d-%d" % ab for ab in parts), "rev" if rc else "fwd")
-            f.write(b">" + name.encode() + b"\n")
-            for j in range(0, len(seq), 80):
-                f.write(seq[j:j + 80] + b"\n")
+            write_sv_read(f, rng, "sv", i,
+                          *sv_read(rng, genome, kind, L, SV_SIZES), 0.15)
+    return path
+
+
+def make_ultralong(rng, genome, path):
+    """UL_READS ultra-long reads on genome (ASCII ACGT): each read's length
+    before the noise log-uniform in UL_LEN, the kinds of SV_KINDS in turn
+    (event sizes UL_SIZES), each through the fuzz's pacbio_noise at a rate
+    drawn uniform in UL_ERR and reverse-complemented with probability 1/2,
+    written to path as FASTA (write_sv_read's names)."""
+    lo, hi = np.log(UL_LEN[0]), np.log(UL_LEN[1])
+    with open(path, "wb") as f:
+        for i in range(UL_READS):
+            kind = SV_KINDS[i % len(SV_KINDS)]
+            L = int(np.exp(rng.uniform(lo, hi)))
+            kind, parts, seq = sv_read(rng, genome, kind, L, UL_SIZES)
+            err = float(rng.uniform(*UL_ERR))
+            write_sv_read(f, rng, "ul", i, kind, parts, seq, err)
     return path
 
 
@@ -210,9 +288,20 @@ def phase4_genome():
                           int(cs.GENOME_MBP * 1e6))
 
 
-def write_svlong(path):
+def write_svlong(path, genome=None):
     """svlong's reads file at path, on phase 4's genome."""
-    return make_svlong(np.random.default_rng(SV_SEED), phase4_genome(), path)
+    genome = phase4_genome() if genome is None else genome
+    return make_svlong(np.random.default_rng(SV_SEED), genome, path)
+
+
+def write_ultralong(path, genome=None):
+    """ultralong's reads file at path, on phase 4's genome."""
+    genome = phase4_genome() if genome is None else genome
+    return make_ultralong(np.random.default_rng(UL_SEED), genome, path)
+
+
+# phase 4's genome's reads files written here, beside make_dataset's
+PHASE4_EXTRA = ((SV_FILE, write_svlong), (UL_FILE, write_ultralong))
 
 
 def genome_files(genome, root):
@@ -231,12 +320,19 @@ def genome_files(genome, root):
         if genome == "phase4":
             cs.make_dataset(np.random.default_rng(cs.MAPPING_SEED),
                             cs.GENOME_MBP, cs.N_READS, cs.READ_LEN, d)
-            write_svlong(os.path.join(d, SV_FILE))
         else:
             cs.make_dataset(np.random.default_rng(cs.LARGE_SEED),
                             cs.LARGE_GENOME_MBP, cs.N_READS, cs.READ_LEN, d,
                             repeats=True)
         open(done, "w").close()
+    if genome == "phase4":
+        todo = [(f, w) for f, w in PHASE4_EXTRA
+                if not os.path.exists(os.path.join(d, f))]
+        g = phase4_genome() if todo else None
+        for fname, write in todo:
+            path = os.path.join(d, fname)
+            write(path + ".part", g)
+            os.replace(path + ".part", path)
     files = {"ref": os.path.join(d, "ref.fa")}
     for g, reads, _ in DATASETS.values():
         if g == genome:
@@ -375,21 +471,23 @@ def jax_run(dataset, files, out_dir):
     with @PG stripped, the child's seconds and peak RSS)."""
     _, reads, _ = DATASETS[dataset]
     out = os.path.join(out_dir, dataset + ".sam")
-    cost = fuzz.run_jax_cli(files["ref"], files[reads], out, PRESET, dataset)
+    cost = fuzz.run_jax_cli(files["ref"], files[reads], out, PRESET, dataset,
+                            JAX_ENV.get(dataset))
     with open(out, "rb") as f:
         sam = fuzz.strip_pg(f.read())
     os.remove(out)
     return sam, cost
 
 
-def jax_records(ref, reads_p, names, workdir):
-    """The JAX package's SAM (@PG stripped) of names alone, or None where
-    the JAX package cannot run here."""
+def jax_records(dataset, ref, reads_p, names, workdir):
+    """The JAX package's SAM (@PG stripped) of dataset's reads names alone,
+    or None where the JAX package cannot run here."""
     if importlib.util.find_spec("jax") is None:
         return None
     sub = pick_reads(reads_p, names, os.path.join(workdir, "diff_reads.fa"))
     out = os.path.join(workdir, "diff_jax.sam")
-    fuzz.run_jax_cli(ref, sub, out, PRESET, "the differing reads")
+    fuzz.run_jax_cli(ref, sub, out, PRESET, "the differing reads",
+                     JAX_ENV.get(dataset))
     with open(out, "rb") as f:
         return fuzz.strip_pg(f.read())
 
@@ -405,9 +503,9 @@ def write_jax(out_dir, jobs, names, root):
     if os.path.exists(path):
         with gzip.open(path, "rt") as f:
             kept = [l for l in f if l.split("\t")[1] not in names]
-    jax_cmd = ("JAX_PLATFORMS=cpu python -m ngmlr_tpu -r ref.fa -q reads.fa "
-               "-o out.sam -t 1 -x %s --skip-write --no-progress, @PG "
-               "stripped" % PRESET)
+    jax_cmd = ("%sJAX_PLATFORMS=cpu python -m ngmlr_tpu -r ref.fa -q "
+               "reads.fa -o out.sam -t 1 -x %s --skip-write --no-progress, "
+               "@PG stripped")
     t0 = time.perf_counter()
     work = []
     for genome, sets in by_genome(names).items():
@@ -437,7 +535,9 @@ def write_jax(out_dir, jobs, names, root):
             "genome_sha256": sha256_file(files["ref"]),
             "reads_sha256": sha256_file(files[reads]),
             "reads": len(read_names(files[reads])),
-            "command": jax_cmd, "ngmlr_tpu_commit": commit,
+            "command": jax_cmd % ("".join(
+                "%s=%s " % kv for kv in JAX_ENV.get(n, {}).items()), PRESET),
+            "ngmlr_tpu_commit": commit,
             "summary": fuzz.sam_summary(sam),
             "generate_s": gen_s,
             "jax_wall_s": cost["wall_s"], "jax_cpu_s": cost["cpu_s"],
@@ -490,16 +590,21 @@ def lane_class(L):
 
 @contextlib.contextmanager
 def fill_lanes():
-    """Counts convex_fill's calls by lane count while inside (a stand-in
-    for the wrapper, as chip_smoke.recorded_shapes). Yields the Counter."""
+    """Counts convex_fill's calls by lane count, and the largest call's
+    direction planes (B x TpP x L u8), while inside (a stand-in for the
+    wrapper, as chip_smoke.recorded_shapes). Yields {"lanes": Counter,
+    "dirs_max": [B, TpP, L] of the largest call}."""
     from ngmlr_tpu_torch.ops import kernels as K
-    seen = collections.Counter()
+    seen = {"lanes": collections.Counter(), "dirs_max": [0, 0, 0]}
     orig = K.convex_fill
     lock = threading.Lock()
 
     def cf(genome, readbuf, pk, params, ymin, ymax, L):
+        shape = [*ymin.shape, L]
         with lock:
-            seen[L] += 1
+            seen["lanes"][L] += 1
+            if np.prod(shape) > np.prod(seen["dirs_max"]):
+                seen["dirs_max"] = shape
         return orig(genome, readbuf, pk, params, ymin, ymax, L)
     K.convex_fill = cf
     try:
@@ -508,22 +613,71 @@ def fill_lanes():
         K.convex_fill = orig
 
 
+@contextlib.contextmanager
+def align_refusals():
+    """Records, while inside, the align rows that DeviceContext's
+    align_dispatch_pk refused (a problem whose solo launch's direction
+    planes pass DIRS_CAP fails, as the reference's maxMatrixSizeMB
+    refusal), by wrapping the method as fill_lanes wraps the fill. Yields
+    the list of [W, qlen, corridor width] of each refused row."""
+    from ngmlr_tpu_torch.ops.device_engine import DeviceContext
+    seen = []
+    orig = DeviceContext.align_dispatch_pk
+    lock = threading.Lock()
+
+    def dispatch(self, pk_all, params, readbuf=None, conservative_L=False):
+        pend = orig(self, pk_all, params, readbuf, conservative_L)
+        if pend is not None:
+            with lock:
+                seen.extend([int(pk_all[i, 3]) & ((1 << 28) - 1),
+                             int(pk_all[i, 5]), int(pk_all[i, 9])]
+                            for i in pend[4])
+        return pend
+    DeviceContext.align_dispatch_pk = dispatch
+    try:
+        yield seen
+    finally:
+        DeviceContext.align_dispatch_pk = orig
+
+
+@contextlib.contextmanager
+def align_shapes(device):
+    """fill_lanes and align_refusals together, with the peak device memory
+    (torch.cuda.max_memory_allocated after reset_peak_memory_stats; None
+    off the card). Yields a dict that holds, after the block, {"fill_lanes"
+    (lanes: calls), "lane_classes", "dirs_max_shape", "dirs_max_bytes",
+    "dirs_cap_refused" (rows), "refused_rows", "peak_device_bytes"}."""
+    import torch
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    out = {}
+    with fill_lanes() as fill, align_refusals() as refused:
+        yield out
+    classes = collections.Counter()
+    for L, n in fill["lanes"].items():
+        classes[lane_class(L)] += n
+    out.update(fill_lanes=dict(sorted(fill["lanes"].items())),
+               lane_classes=dict(classes), dirs_max_shape=fill["dirs_max"],
+               dirs_max_bytes=int(np.prod(fill["dirs_max"])),
+               dirs_cap_refused=len(refused), refused_rows=refused,
+               peak_device_bytes=(torch.cuda.max_memory_allocated()
+                                  if cuda else None))
+
+
 def map_once(tag, p, reads_p):
     """One counted mapping (chip_smoke._run_counted) under
-    NGMLR_TPU_STRICT=1, with convex_fill's lane counts. Returns {sam (@PG
-    stripped), map_s, launches, stats, fill_lanes, lane_classes}."""
+    NGMLR_TPU_STRICT=1, with align_shapes' numbers. Returns {sam (@PG
+    stripped), map_s, launches, stats} and align_shapes' keys."""
     old = cs._env("NGMLR_TPU_STRICT", "1")
     try:
-        with fill_lanes() as lanes:
+        with align_shapes(p.ctx.device) as shapes:
             out, t_run, launches, stats = cs._run_counted(tag, p, reads_p)
     finally:
         cs._env("NGMLR_TPU_STRICT", old)
-    classes = collections.Counter()
-    for L, n in lanes.items():
-        classes[lane_class(L)] += n
     return {"sam": fuzz.strip_pg(out), "map_s": t_run, "launches": launches,
-            "stats": stats, "fill_lanes": dict(sorted(lanes.items())),
-            "lane_classes": dict(classes)}
+            "stats": stats, **shapes}
 
 
 def check_native(tag, p, run):
@@ -564,7 +718,9 @@ def map_both(p, dataset, reads_p, want, names=None):
 
 def report(run, setup_s):
     keep = ("search", "reads", "identical", "file_identical", "map_s",
-            "launches", "lane_classes", "fill_lanes")
+            "launches", "lane_classes", "fill_lanes", "dirs_max_shape",
+            "dirs_max_bytes", "dirs_cap_refused", "refused_rows",
+            "peak_device_bytes")
     rec = {k: run[k] for k in keep}
     rec.update(diff=len(run["diff"]), setup_s=setup_s,
                lane_bound_retries=run["stats"].get("lane_bound_retries", 0),
@@ -606,8 +762,9 @@ def scale_datasets(names, device, n_reads, root, digests):
                     print("dataset=%s %s: %s" % (n, m, json.dumps(
                         records[n][m])), flush=True)
                     if r["diff"]:
-                        jax = (jax_records(files["ref"], reads_p, r["diff"],
-                                           d) if device == "cpu" else None)
+                        jax = (jax_records(n, files["ref"], reads_p,
+                                           r["diff"], d)
+                               if device == "cpu" else None)
                         sys.stdout.write(diff_text(n, digests[n], r["sam"],
                                                    r["diff"], jax))
                 print("dataset=%s: %.1f s" % (n, time.perf_counter() - t0),
@@ -629,6 +786,28 @@ def scale_datasets(names, device, n_reads, root, digests):
     return (1 if failed else 0), records
 
 
+def test8_lanes(device):
+    """tests/data/test_8 (the reference binary's ultra-long golden: 13
+    reads of 50-250 kb on a 3 Mb genome) mapped once on device with the
+    gate's search (chip_smoke._map), each read the reference binary
+    survived equal to tests/golden/test_8_ultralong.sam, with
+    align_shapes' numbers. Returns (its record, whether every read held)."""
+    tag, argv, golden, _ = next(r for r in cs._golden_runs()
+                                if r[0].startswith("test_8"))
+    with align_shapes(device) as shapes:
+        p, out, setup_s, map_s, launches = cs._map(argv, device=device)
+    with open(os.path.join(cs.GOLDEN, golden), "rb") as f:
+        want = cs._per_read(f.read(), False)
+    ours = cs._per_read(out, False)
+    bad = [q for q, recs in want.items() if ours.get(q) != recs]
+    rec = {"reads": len(want), "identical": len(want) - len(bad),
+           "diff": bad, "setup_s": setup_s,
+           "map_s": map_s, "launches": launches,
+           "lane_bound_retries": p.ctx.stats.get("lane_bound_retries", 0),
+           **shapes}
+    return rec, not bad
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("datasets", nargs="*", metavar="DATASET",
@@ -637,6 +816,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--reads", type=int, default=None,
                     help="map only the first N reads of each dataset")
+    ap.add_argument("--test8", action="store_true",
+                    help="also map tests/data/test_8 against its golden and "
+                         "report its lane classes")
     ap.add_argument("--write-jax", metavar="DIR",
                     help="write the digests (needs the JAX package)")
     ap.add_argument("--jobs", type=int, default=2,
@@ -657,8 +839,16 @@ def main(argv=None):
               "with --write-jax tests/golden/torch_scale %s)"
               % (", ".join(missing), " ".join(missing)))
         return 2
-    return scale_datasets(set(names), args.device, args.reads, root,
+    code = scale_datasets(set(names), args.device, args.reads, root,
                           digests)[0]
+    if args.test8:
+        rec, held = test8_lanes(args.device)
+        print("golden=test_8: %s" % json.dumps(rec), flush=True)
+        if not held:
+            print("FAIL: test_8: %d reads differ from its golden"
+                  % len(rec["diff"]), flush=True)
+            code = 1
+    return code
 
 
 if __name__ == "__main__":

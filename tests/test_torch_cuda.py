@@ -4,9 +4,9 @@ kernels' run, the oracle modules (ops/convex.py, ops/ungapped.py,
 ops/convex_ref.py) against the CPU and the engine, the SV case of
 tests/test_native_engine.py:118, scripts/torch_bench.py, the SV-rich
 fuzz (scripts/torch_fuzz_vs_jax.py) against the JAX package's committed
-SAM, and phase 4's reads and the long SV reads on its genome
-(scripts/torch_scale_vs_jax.py) against the JAX package's committed
-digests, on the card. Marked ``cuda``: every
+SAM, and phase 4's reads, the long SV reads and the ultra-long reads on
+its genome (scripts/torch_scale_vs_jax.py) against the JAX package's
+committed digests, on the card. Marked ``cuda``: every
 test skips where torch sees no card. The file imports neither jax nor the test conftest, so it also runs on a
 machine with a card and no JAX:
 
@@ -733,3 +733,34 @@ def test_scale_script_holds_phase4_and_svlong_on_the_card(dev, tmp_path,
             assert r["diff"] == 0 and r["file_identical"]
             assert r["identical"] == r["reads"] > 0
         assert runs["gate"]["launches"]["expand_votes"] > 0
+
+
+def test_scale_script_holds_ultralong_on_the_card(dev, tmp_path,
+                                                  monkeypatch):
+    """scripts/torch_scale_vs_jax.py's card mode on ultralong (36 reads of
+    50-250 kb): mapped with the device search and the host search on one
+    Pipeline, every read and the whole file equal to the JAX package's
+    digests, with the fill's lane classes, the largest launch's direction
+    bytes (at most DIRS_CAP's 4 GiB), the refused rows and the peak device
+    memory reported; then tests/data/test_8 (--test8) held to its golden
+    with the same numbers."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import torch_scale_vs_jax as S
+    monkeypatch.delenv("NGMLR_TPU_DEVICE_SEARCH", raising=False)
+    monkeypatch.delenv("NGMLR_TPU_DIRS_CAP_GB", raising=False)
+    code, rec = S.scale_datasets({"ultralong"}, "cuda", None, str(tmp_path),
+                                 S.load_digests())
+    assert code == 0
+    runs = rec["ultralong"]
+    assert [r["search"] for r in runs.values()] == ["device", "host"]
+    for r in runs.values():
+        assert r["diff"] == 0 and r["file_identical"]
+        assert r["identical"] == r["reads"] == S.UL_READS
+        assert 0 < r["dirs_max_bytes"] <= 4 << 30
+        assert r["peak_device_bytes"] > r["dirs_max_bytes"]
+        assert sum(r["lane_classes"].values()) == r["launches"]["convex_fill"]
+        assert r["dirs_cap_refused"] == len(r["refused_rows"])
+    assert runs["gate"]["launches"]["expand_votes"] > 0
+    rec, held = S.test8_lanes("cuda")
+    assert held and rec["identical"] == rec["reads"] > 0
+    assert sum(rec["lane_classes"].values()) == rec["launches"]["convex_fill"]

@@ -1,9 +1,10 @@
 """The port's device candidate search (ngmlr_tpu_torch.seed.device_search)
 on the CPU, held exactly against ngmlr_tpu's DeviceSearch and the host
-search_batch on the inputs of tests/test_device_search.py; its expand_votes
-plain version against the Pallas kernel in interpret mode; the k-mer count
-stage against JAX's; the runner's gate; and test_2 through the port's
-Pipeline with the device search forced on.
+search_batch on the inputs of tests/test_device_search.py; the host
+search_batch past 8192 subreads a batch, where ngmlr_tpu's rounds; its
+expand_votes plain version against the Pallas kernel in interpret mode;
+the k-mer count stage against JAX's; the runner's gate; and test_2
+through the port's Pipeline with the device search forced on.
 
 Each dense bucket table is 537 MB at k = 13, so every case computes the JAX
 results first and frees them before it builds the port's.
@@ -213,6 +214,31 @@ def test_device_search_matches_jax_and_host(case, tmp_path, monkeypatch):
         assert st.get("search_v2_retry", 0) > 0
     if case == "chunked":
         assert st["search_v2_launches"] > 1
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_host_search_keeps_subreads_apart_past_8192(seed, tmp_path):
+    """search_batch's candidates of a subread do not depend on its batch:
+    behind 8192 subreads without a k-mer, _mutated's subreads get the
+    candidates they get alone. ngmlr_tpu's search_batch keys its running
+    vote maximum by sub_idx * 2^40 in f64, which rounds the counts from the
+    8,193rd subread on, so there some of them change (the fault the port
+    repaired; an intake batch of ultra-long reads holds 20,520 subreads)."""
+    genome, seqs = _mutated(seed)
+    fa = str(tmp_path / "ref.fa")
+    _write_fa(fa, genome)
+    batch = [b"N" * 60] * 8192 + seqs
+    jidx = JKmerIndex.build(JReferenceGenome.from_fasta(fa, use_cache=False))
+    jalone = jsearch_batch(jidx, seqs)
+    jbehind = jsearch_batch(jidx, batch)[8192:]
+    assert len(jbehind) == len(jalone)
+    assert any(not np.array_equal(a.counts, b.counts)
+               or not np.array_equal(a.locations, b.locations)
+               for a, b in zip(jalone, jbehind))
+    idx = KmerIndex.build(ReferenceGenome.from_fasta(fa, use_cache=False))
+    alone = search_batch(idx, seqs)
+    _assert_same(jalone, alone, "alone, vs ngmlr_tpu")
+    _assert_same(alone, search_batch(idx, batch)[8192:], "behind 8192")
 
 
 def test_device_search_slices_past_max_subs(tmp_path, monkeypatch):

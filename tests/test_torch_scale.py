@@ -1,11 +1,12 @@
 """The real-size datasets of scripts/torch_scale_vs_jax.py on the CPU: the
-generators rebuild phase4's, svlong's and bench30's FASTAs to the sha256 of
-tests/golden/torch_scale/MANIFEST.json; the committed digests cover every
-read of every dataset; and the first PREFIX reads of phase4 and of svlong,
-through the port (its plain versions) and through `python -m ngmlr_tpu`,
-equal their committed per-read digests, so the committed file is what the
-JAX package writes now (regenerate it with --write-jax after any change to
-ngmlr_tpu/).
+generators rebuild phase4's, svlong's, ultralong's and bench30's FASTAs to
+the sha256 of tests/golden/torch_scale/MANIFEST.json; the committed digests
+cover every read of every dataset; the first PREFIX reads of phase4 and of
+svlong, through the port (its plain versions) and through `python -m
+ngmlr_tpu`, equal their committed per-read digests, so the committed file
+is what the JAX package writes now (regenerate it with --write-jax after
+any change to ngmlr_tpu/); and ultralong's shortest read (52 kb) through
+the port equals its committed digest.
 """
 
 import gzip
@@ -31,11 +32,13 @@ MAPPED = ("phase4", "svlong")
 
 @pytest.fixture(scope="module")
 def phase4_files(tmp_path_factory):
-    """Phase 4's genome, its reads and svlong's, written once."""
+    """Phase 4's genome, its reads, svlong's and ultralong's, written
+    once."""
     return S.genome_files("phase4", str(tmp_path_factory.mktemp("scale")))
 
 
-@pytest.mark.parametrize("dataset", ["phase4", "svlong", "bench30"])
+@pytest.mark.parametrize("dataset", ["phase4", "svlong", "ultralong",
+                                     "bench30"])
 def test_generators_rebuild_the_committed_bytes(dataset, phase4_files,
                                                 tmp_path, monkeypatch):
     entry = S.load_manifest()["datasets"][dataset]
@@ -77,14 +80,29 @@ def _port_cli(ref, reads, out):
         return f.read()
 
 
+def shortest_read(reads_p):
+    """The name of a FASTA file's shortest read."""
+    lengths = {}
+    with open(reads_p, "rb") as f:
+        for line in f:
+            if line.startswith(b">"):
+                name = line[1:].split()[0]
+                lengths[name] = 0
+            else:
+                lengths[name] += len(line.rstrip())
+    return min(lengths, key=lengths.get)
+
+
 @pytest.fixture(scope="module")
 def prefix_sams(phase4_files, tmp_path_factory):
     """{(package, dataset): (SAM, read names)} of the first PREFIX reads of
-    MAPPED. The JAX package maps both prefixes in one process. The port
-    builds the genome's caches in this process and maps phase4's prefix
-    here, and each of svlong's reads in a CLI process of its own, all at
-    once: the plain convex fill takes most of a minute on one long SV read,
-    and a read's records do not depend on the reads beside it."""
+    MAPPED, and ("port", "ultralong") of ultralong's shortest read. The JAX
+    package maps both prefixes in one process. The port builds the
+    genome's caches in this process and maps phase4's prefix here, and
+    each of svlong's reads and the ultra-long read in a CLI process of its
+    own, all at once: the plain convex fill takes most of a minute on one
+    long SV read (and 85 s on the ultra-long one alone), and a read's
+    records do not depend on the reads beside it."""
     d = str(tmp_path_factory.mktemp("prefix"))
     ref = phase4_files["ref"]
     heads = {n: S.head_reads(phase4_files[S.DATASETS[n][1]], PREFIX,
@@ -96,19 +114,25 @@ def prefix_sams(phase4_files, tmp_path_factory):
             with open(heads[n], "rb") as h:
                 f.write(h.read())
     out = {}
-    with ThreadPoolExecutor(max_workers=1 + PREFIX) as pool:
+    ul = S.pick_reads(phase4_files[S.UL_FILE],
+                      [shortest_read(phase4_files[S.UL_FILE])],
+                      os.path.join(d, "ul.fa"))
+    names["ultralong"] = S.read_names(ul)
+    with ThreadPoolExecutor(max_workers=2 + PREFIX) as pool:
         jax = pool.submit(S.fuzz.run_jax_cli, ref, both,
                           os.path.join(d, "jax.sam"), S.PRESET, "prefixes")
         p, _ = S.port_pipeline(ref, "cpu")
         singles = [S.pick_reads(heads["svlong"], [q],
                                 os.path.join(d, "sv%d.fa" % i))
                    for i, q in enumerate(names["svlong"])]
-        sv = [pool.submit(_port_cli, ref, r, r + ".sam") for r in singles]
+        sv = [pool.submit(_port_cli, ref, r, r + ".sam")
+              for r in singles + [ul]]
         run = S.map_once("phase4 prefix", p, heads["phase4"])
         S.check_native("phase4 prefix", p, run)
         out["port", "phase4"] = run["sam"]
         out["port", "svlong"] = b"".join(S.fuzz.strip_pg(f.result())
-                                         for f in sv)
+                                         for f in sv[:-1])
+        out["port", "ultralong"] = S.fuzz.strip_pg(sv[-1].result())
         jax.result()
     with open(os.path.join(d, "jax.sam"), "rb") as f:
         jax_sam = S.fuzz.strip_pg(f.read())
@@ -128,3 +152,11 @@ def test_prefix_equals_the_committed_digests(prefix_sams, dataset, package):
     held = S.hold(want, sam, names, whole=False)
     assert held["identical"] == PREFIX, S.diff_text(dataset, want, sam,
                                                     held["diff"])
+
+
+def test_shortest_ultralong_read_equals_its_committed_digest(prefix_sams):
+    sam, names = prefix_sams["port", "ultralong"]
+    want = S.load_digests()["ultralong"]
+    held = S.hold(want, sam, names, whole=False)
+    assert held["identical"] == 1, S.diff_text("ultralong", want, sam,
+                                               held["diff"])
