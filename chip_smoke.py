@@ -133,7 +133,23 @@ Phases, each printed with its wall time:
      align launch's first row is then copied into each of its slots and
      launched again: each slot's ops and scalars equal the first row's in
      the mapping (in phase 14 the last slots' direction bytes lie past
-     2^31).
+     2^31);
+ 15. the CLI's option sets over FASTQ input (scripts/torch_options_vs_jax.py):
+     fuzzq (seed 501's fuzz dataset with per-base qualities, FASTQ.gz)
+     under every option set but bamfix (default, ont, scoring, affine,
+     fractional, k11, k15, bins, sub128, sub512, strict, nosplit,
+     readgroup), each through the script's map_set on a new Pipeline
+     built from the set's argv by the port's parser: the gate's
+     search, which must be the device search for every set but sub512
+     (whose gate keeps the host search), then the other search (sub512:
+     the host search at 20-read batches), readgroup also through the
+     CLI's -o *.sam.gz; every read, QUAL included, and each whole file
+     equal to the JAX package's digests (tests/golden/torch_options);
+     every kernel launched, the phase's launches on the kernels line
+     (options_launches). phase4q (phase 4 as FASTQ.gz) is held by the
+     script's card run alone: under scoring and k15 it adds ~47 s (an
+     index build at k = 13 and one at k = 15 with its 2^30-row table) to
+     a smoke that must stay well inside its time limit.
 With --profile DIR, torch.profiler traces the first mapping of phases 4
 and 5 (device time by kernel and the busy share; in phase 4 also the
 launch shapes of corridor_windows, convex_fill and convex_backtrack and
@@ -143,7 +159,7 @@ listing every kernel, the card's line from nvidia-smi, and the final line
 {"ok": true, "device": {...}}.
 
 Every mapping run (each golden, each mapping of phases 4 to 7, 9, 10,
-12 to 14, and phase 11's in-process one; a process of phase 6's
+12 to 15, and phase 11's in-process one; a process of phase 6's
 two-process run reports its own) sets the launch counters to 0 just
 before it drives the pipeline and reads them just after; each run's
 counts must equal the launches its own engine recorded (one score_fill per
@@ -154,9 +170,10 @@ mappings of phases 4, 5 and 9 must launch all five. On the mesh,
 mesh_problems_psum must equal the real problems handed to the waves,
 counted on the host before the split.
 The kernels line carries the counts of phase 4's first mapping, the
-main path, and under ultralong_launches those of phase 14's two
-mappings; the comparisons of phase 2 count nowhere. Any failed phase
-exits non-zero without the final line. Needs one CUDA card, nvcc and the
+main path, under ultralong_launches those of phase 14's two mappings,
+and under options_launches those of phase 15's mappings; the
+comparisons of phase 2 count nowhere. Any failed phase exits non-zero
+without the final line. Needs one CUDA card, nvcc and the
 repository checkout (it imports ngmlr_tpu_torch from beside this file).
 """
 
@@ -3401,6 +3418,41 @@ def phase_long_reads(main_path, workdir, dataset):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the CLI's option sets over FASTQ input (scripts/
+# torch_options_vs_jax.py) against the JAX package's committed digests
+# ---------------------------------------------------------------------------
+
+def phase_options(workdir):
+    """Phase 15: fuzzq under every set that maps it (all but bamfix)
+    through the script's options_run on the card: a new Pipeline per pair
+    from the set's argv, the gate's search (the device search but for
+    sub512) and the other search (sub512: the host search at 20-read
+    batches), readgroup also through the CLI's -o *.sam.gz, each under
+    NGMLR_TPU_STRICT=1 with its launches its engine's record, every read
+    and each file equal to the JAX package's digests. Returns each pair's
+    numbers and the phase's launches."""
+    O = _script("torch_options_vs_jax")
+    old = _env("NGMLR_TPU_DEVICE_SEARCH", None)
+    try:
+        code, pairs = O.options_run(
+            [k for k in O.pairs() if k[1] == "fuzzq"], "cuda", None,
+            workdir, O.load_digests(), n_mappings=2)
+    finally:
+        _env("NGMLR_TPU_DEVICE_SEARCH", old)
+    check(code == 0, "the option sets exited %d (see the FAIL lines above)"
+          % code)
+    launched = dict.fromkeys(KERNELS, 0)
+    for rec in pairs.values():
+        for m, run in rec.items():
+            if m not in ("setup", "cross_check"):
+                for k in KERNELS:
+                    launched[k] += run["launches"][k]
+    check(all(launched.values()), "phase 15 left a kernel unlaunched: %s"
+          % launched)
+    return {"pairs": pairs, "launches": launched}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -3408,8 +3460,8 @@ def main():
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="trace phases 4 and 5 with torch.profiler into DIR")
     args = ap.parse_args()
-    # the scripts this imports (phases 4, 5 and 11-14) import chip_smoke: let them
-    # find this module rather than load a second copy
+    # the scripts this imports (phases 4, 5 and 11-15) import chip_smoke:
+    # let them find this module rather than load a second copy
     sys.modules.setdefault("chip_smoke", sys.modules[__name__])
     if not os.path.isdir(os.path.join(HERE, "ngmlr_tpu_torch")):
         log("FAIL: ngmlr_tpu_torch/ not found beside chip_smoke.py; run it "
@@ -3505,6 +3557,11 @@ def main():
               "%s" % launched)
         log("phase 14 (ultra-long reads against the JAX package): %.2f s"
             % (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        record["options"] = phase_options(
+            os.path.join(HERE, "ngmlr_tpu_torch", "_build", "smoke_options"))
+        log("phase 15 (the option sets over FASTQ against the JAX "
+            "package): %.2f s" % (time.perf_counter() - t0))
         # the launches of the one-chromosome run, the main path
         launches = record["mapping"]["launches"]
     except PhaseError as e:
@@ -3516,10 +3573,11 @@ def main():
         r = dict(kern[name])
         r["launches"] = launches[name]
         r["ultralong_launches"] = launched[name]
+        r["options_launches"] = record["options"]["launches"][name]
         line["kernels"].append({k: r[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "ultralong_launches")})
+            "ultralong_launches", "options_launches")})
     record["kernels"] = line["kernels"]
     record["total_s"] = time.perf_counter() - t_all
     _dump(args.out, record)

@@ -298,18 +298,23 @@ def jax_argv(ref, reads, out, preset):
 
 
 def run_jax_cli(ref, reads, out, preset, what, env=None):
-    """`python -m ngmlr_tpu` (jax_argv) in a subprocess on the CPU
-    (JAX_PLATFORMS=cpu), single-threaded, writing out, with env's
-    variables added. Returns the child's {"wall_s", "cpu_s" (user +
-    system), "peak_rss_gb"}; raises RuntimeError with the end of its
-    stderr where it exits non-zero."""
+    """`python -m ngmlr_tpu` (jax_argv) in a subprocess on the CPU; see
+    run_jax_argv."""
+    return run_jax_argv(jax_argv(ref, reads, out, preset), what, env)
+
+
+def run_jax_argv(argv, what, env=None):
+    """argv (a `python -m ngmlr_tpu` command) in a subprocess on the CPU
+    (JAX_PLATFORMS=cpu), single-threaded, with env's variables added.
+    Returns the child's {"wall_s", "cpu_s" (user + system),
+    "peak_rss_gb"}; raises RuntimeError with the end of its stderr where it
+    exits non-zero."""
     env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
                XLA_FLAGS="--xla_cpu_multi_thread_eigen=false", **(env or {}))
     with tempfile.TemporaryFile() as err:
         t0 = time.perf_counter()
-        proc = subprocess.Popen(jax_argv(ref, reads, out, preset), cwd=REPO,
-                                env=env, stdout=subprocess.DEVNULL,
-                                stderr=err)
+        proc = subprocess.Popen(argv, cwd=REPO, env=env,
+                                stdout=subprocess.DEVNULL, stderr=err)
         # wait4, not wait: the child's own CPU seconds and peak RSS
         _, status, ru = os.wait4(proc.pid, 0)
         proc.returncode = os.waitstatus_to_exitcode(status)

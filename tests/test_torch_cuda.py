@@ -5,8 +5,9 @@ ops/convex_ref.py) against the CPU and the engine, the SV case of
 tests/test_native_engine.py:118, scripts/torch_bench.py, the SV-rich
 fuzz (scripts/torch_fuzz_vs_jax.py) against the JAX package's committed
 SAM, and phase 4's reads, the long SV reads and the ultra-long reads on
-its genome (scripts/torch_scale_vs_jax.py) against the JAX package's
-committed digests, on the card. Marked ``cuda``: every
+its genome (scripts/torch_scale_vs_jax.py) and the CLI's option sets
+over FASTQ input (scripts/torch_options_vs_jax.py) against the JAX
+package's committed digests, on the card. Marked ``cuda``: every
 test skips where torch sees no card. The file imports neither jax nor the test conftest, so it also runs on a
 machine with a card and no JAX:
 
@@ -764,3 +765,34 @@ def test_scale_script_holds_ultralong_on_the_card(dev, tmp_path,
     rec, held = S.test8_lanes("cuda")
     assert held and rec["identical"] == rec["reads"] > 0
     assert sum(rec["lane_classes"].values()) == rec["launches"]["convex_fill"]
+
+
+def test_options_script_holds_the_fuzzq_sets_on_the_card(dev, tmp_path,
+                                                         monkeypatch):
+    """scripts/torch_options_vs_jax.py's card mode on fuzzq (seed 501's
+    fuzz dataset as FASTQ.gz) under every set that maps it: the gate's
+    search (the device search; sub512 the host search), the other search
+    (sub512: 20-read batches) and 20-read batches, readgroup also through
+    the CLI's -o *.sam.gz, every read, QUAL included, and each file equal
+    to the JAX package's digests; the default set's cross-check against
+    seed 501's committed SAM with QUAL masked."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import torch_options_vs_jax as O
+    monkeypatch.delenv("NGMLR_TPU_DEVICE_SEARCH", raising=False)
+    keys = [k for k in O.pairs() if k[1] == "fuzzq"]
+    code, rec = O.options_run(keys, "cuda", None, str(tmp_path),
+                              O.load_digests())
+    assert code == 0
+    for name, _ in keys:
+        runs = {m: r for m, r in rec["%s/fuzzq" % name].items()
+                if m not in ("setup", "cross_check")}
+        gate = "host" if name == O.HOST_GATE else "device"
+        assert runs["gate"]["search"] == gate
+        for r in runs.values():
+            assert r["diff"] == 0 and r["file_identical"]
+            assert r["identical"] == r["reads"] == 150
+        if gate == "device":
+            assert runs["other search"]["search"] == "host"
+            assert runs["gate"]["launches"]["expand_votes"] > 0
+    assert rec["default/fuzzq"]["cross_check"][
+        "fuzzq_default_vs_seed501"]["diff"] == []

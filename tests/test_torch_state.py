@@ -117,7 +117,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert n > 30
     assert {"scripts/torch_bench.py", "scripts/torch_bench_prep.py",
             "scripts/torch_fuzz_vs_jax.py", "scripts/torch_human_scale.py",
-            "scripts/torch_scale_vs_jax.py", "scripts/torch_tune_fill.py"} \
+            "scripts/torch_options_vs_jax.py", "scripts/torch_scale_vs_jax.py",
+            "scripts/torch_tune_fill.py"} \
         <= scanned
     assert not bad, bad
 
