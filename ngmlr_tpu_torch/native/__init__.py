@@ -182,6 +182,8 @@ def get_engine_lib():
                 ctypes.c_void_p, ctypes.c_int64,             # codes, len
                 ctypes.c_void_p, ctypes.c_int32]             # sp, n_sp
             lib.engine_destroy.argtypes = [ctypes.c_void_p]
+            lib.engine_cpu_seconds.restype = ctypes.c_double
+            lib.engine_cpu_seconds.argtypes = [ctypes.c_void_p]
             lib.engine_start_batch.restype = None
             lib.engine_start_batch.argtypes = [
                 ctypes.c_void_p, ctypes.c_int32,

@@ -29,6 +29,7 @@
 #include <cmath>
 #include <condition_variable>
 #include <cstdint>
+#include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <deque>
@@ -39,7 +40,9 @@
 #include <thread>
 #include <vector>
 
+#include <pthread.h>
 #include <sys/mman.h>
+#include <time.h>
 #include <ucontext.h>
 
 // ops_convert from cigar_native.cpp (compiled into the same .so)
@@ -761,6 +764,7 @@ static size_t guard_page_bytes() {
 struct Engine {
   Config cfg;
   RefMeta rm;
+  int id = 0;                          // names the workers: ngmlr-eng<id>-<i>
 
   std::mutex mu;
   std::condition_variable cv_coord;    // coordinator: wave ready / batch done
@@ -804,7 +808,25 @@ struct Engine {
     if (k <= 0) k = 1;
     if (k > 64) k = 64;
     for (int i = 0; i < k; ++i)
-      workers.emplace_back([this] { worker_loop(); });
+      workers.emplace_back([this, i] {
+        char name[16];   // the OS keeps 15 characters
+        snprintf(name, sizeof name, "ngmlr-eng%d-%d", id, i);
+        pthread_setname_np(pthread_self(), name);
+        worker_loop();
+      });
+  }
+
+  // CPU seconds the workers have used so far (their own thread clocks)
+  double workers_cpu_seconds() {
+    double s = 0.0;
+    for (auto& t : workers) {
+      clockid_t cid;
+      timespec ts;
+      if (pthread_getcpuclockid(t.native_handle(), &cid) == 0 &&
+          clock_gettime(cid, &ts) == 0)
+        s += ts.tv_sec + 1e-9 * ts.tv_nsec;
+    }
+    return s;
   }
 
   Fiber* new_fiber(std::function<void()> body, Fiber* parent,
@@ -2444,7 +2466,9 @@ struct RecordABI {
 void* engine_create(const double* cfg_d, const int64_t* cfg_i,
                     const uint8_t* codes, int64_t codes_len,
                     const int64_t* sp, int32_t n_sp) {
+  static std::atomic<int> n_created{0};
   Engine* e = new Engine();
+  e->id = n_created++;
   e->cfg.min_identity = cfg_d[0];
   e->cfg.min_residues = cfg_d[1];
   e->cfg.inv_score_ratio = cfg_d[2];
@@ -2490,6 +2514,11 @@ void engine_finish_batch(void* h) {
   e->cv_coord.wait(lk, [&] {
     return e->n_unfinished == 0 && e->n_running == 0 && e->runq.empty();
   });
+}
+
+// CPU seconds the engine's worker threads have used so far
+double engine_cpu_seconds(void* h) {
+  return ((Engine*)h)->workers_cpu_seconds();
 }
 
 void engine_destroy(void* h) {

@@ -35,6 +35,19 @@ from .shortread import process_short_read
 INTAKE_GROUP = 10  # the reference's cBatchSize (CS.cpp:34)
 
 
+class BatchClock:
+    """An intake batch's number, which each of its spans carries, and the
+    moments (time.perf_counter) it passes between the stages of
+    Pipeline.run: prep's end, its waves' start and end, its emission's
+    start and end."""
+
+    __slots__ = ("id", "prep_end", "wave_start", "wave_end", "emit_start",
+                 "emit_end")
+
+    def __init__(self, bid: int):
+        self.id = bid
+
+
 def _wave_depth(device) -> int:
     """Concurrent in-flight batches: 2 on a CUDA device (straggler align
     waves of batch N overlap batch N+1's bulk wave), 1 on the CPU, where
@@ -150,8 +163,10 @@ class Pipeline:
             stays strictly in batch order on this thread either way.
 
         Debug-dump modes force depth 1 so stdout stays in the reference's
-        single-threaded order."""
-        import os
+        single-threaded order.
+
+        Each batch is numbered at intake; its spans carry the number, and
+        its waits go to ctx.stats when it is emitted (_account)."""
         from collections import deque
         from concurrent.futures import ThreadPoolExecutor
         writer = SamWriter(self.ref, self.cfg, out)
@@ -163,28 +178,33 @@ class Pipeline:
             depth = 1
         batches = read_batches(query_path, self.cfg.batch_reads,
                                shard=shard, n_shards=n_shards)
-        with ThreadPoolExecutor(max_workers=1) as prep_pool, \
-                ThreadPoolExecutor(max_workers=depth) as wave_pool:
-            inflight = deque()   # (batch, prep, outcomes-future)
-            nxt = next(batches, None)
-            prep_fut = (prep_pool.submit(self._prepare_batch, nxt)
+        with ThreadPoolExecutor(max_workers=1,
+                                thread_name_prefix="ngmlr-prep") as prep_pool, \
+                ThreadPoolExecutor(max_workers=depth,
+                                   thread_name_prefix="ngmlr-wave") as wave_pool:
+            inflight = deque()   # (batch, clock, prep, outcomes-future)
+            nxt = self._intake(batches, 0)
+            prep_fut = (prep_pool.submit(self._prepare_batch, *nxt)
                         if nxt is not None else None)
             while nxt is not None or inflight:
                 if nxt is not None and len(inflight) < depth:
-                    prep = prep_fut.result()
-                    cur = nxt
-                    nxt = next(batches, None)
-                    prep_fut = (prep_pool.submit(self._prepare_batch, nxt)
+                    # a wave slot is free: whatever this waits is prep's
+                    with self.ctx.span(None, "main_wait_prep_s"):
+                        prep = prep_fut.result()
+                    cur, clk = nxt
+                    nxt = self._intake(batches, clk.id + 1)
+                    prep_fut = (prep_pool.submit(self._prepare_batch, *nxt)
                                 if nxt is not None else None)
                     self._read_bp += sum(len(r.seq) for r in cur
                                          if not r.empty)
                     inflight.append(
-                        (cur, prep,
-                         wave_pool.submit(self._compute_waves, cur, prep)))
+                        (cur, clk, prep, wave_pool.submit(
+                            self._compute_waves, cur, prep, clk)))
                     continue
-                batch, prep, fut = inflight.popleft()
+                batch, clk, prep, fut = inflight.popleft()
                 outcomes, job_key = fut.result()
-                self._emit(batch, prep, outcomes, job_key, writer)
+                self._emit(batch, prep, outcomes, job_key, writer, clk)
+                self._account(clk)
                 if progress:
                     self._progress_line(t0)
         self.stats["lines"] = writer.lines
@@ -220,94 +240,106 @@ class Pipeline:
 
     # ------------------------------------------------------------------
 
-    def _prepare_batch(self, batch: List[Read]):
+    def _intake(self, batches, bid: int):
+        """The next intake batch and its clock, or None at the input's
+        end."""
+        with self.ctx.span("intake", "intake_s", bid):
+            reads = next(batches, None)
+        return None if reads is None else (reads, BatchClock(bid))
+
+    def _prepare_batch(self, batch: List[Read], clk: BatchClock):
         """Stage 1 of a batch: read-code upload, candidate search, batched
         subread scoring. Runs in a background thread for batch N+1 while
         batch N's alignment waves execute."""
         cfg = self.cfg
+        ctx = self.ctx
         rpl = cfg.read_part_length
-        tp = time.perf_counter()
 
-        total = sum(len(r.seq) for r in batch if not r.empty)
-        buf = np.empty(total, dtype=np.uint8)
-        off = 0
-        for r in batch:
-            if r.empty:
-                continue
-            n = len(r.seq)
-            buf[off:off + n] = _CHAR2CODE[np.frombuffer(r.seq, dtype=np.uint8)]
-            r.buf_offset = off
-            off += n
-        readbuf = self.ctx.upload_reads(buf)
+        with ctx.span("prep.enc", "prep_enc_s", clk.id):
+            total = sum(len(r.seq) for r in batch if not r.empty)
+            buf = np.empty(total, dtype=np.uint8)
+            off = 0
+            for r in batch:
+                if r.empty:
+                    continue
+                n = len(r.seq)
+                buf[off:off + n] = _CHAR2CODE[np.frombuffer(r.seq,
+                                                            dtype=np.uint8)]
+                r.buf_offset = off
+                off += n
+            readbuf = ctx.upload_reads(buf)
 
-        # --- candidate search for every subread / short read at once ------
-        seqs: List[bytes] = []
-        owners: List[tuple] = []       # (read_idx, subread_idx or -1)
-        for ri, read in enumerate(batch):
-            if read.empty:
-                continue
-            n = read.subread_count(rpl)
-            if n == 0:
-                seqs.append(read.seq)
-                owners.append((ri, -1))
+            # --- candidate search for every subread / short read at once --
+            seqs: List[bytes] = []
+            owners: List[tuple] = []       # (read_idx, subread_idx or -1)
+            for ri, read in enumerate(batch):
+                if read.empty:
+                    continue
+                n = read.subread_count(rpl)
+                if n == 0:
+                    seqs.append(read.seq)
+                    owners.append((ri, -1))
+                else:
+                    for j in range(n):
+                        seqs.append(read.subread_seq(j, rpl))
+                        owners.append((ri, j))
+
+        with ctx.span("prep.search", "prep_search_s", clk.id):
+            if self.dev_search is not None:
+                # descriptor path: the subreads are views of the read buffer
+                # already uploaded above — no re-encode, no k-mer upload
+                starts = np.empty(len(owners), dtype=np.int32)
+                lens = np.empty(len(owners), dtype=np.int32)
+                for oi, ((ri, j), s) in enumerate(zip(owners, seqs)):
+                    starts[oi] = (batch[ri].buf_offset
+                                  + (0 if j < 0 else j * rpl))
+                    lens[oi] = len(s)
+                # on a mesh it runs on the primary device, its replica
+                cands = self.dev_search.search_views(readbuf.primary, starts,
+                                                     lens, cfg.sensitivity,
+                                                     cfg.min_kmer_hits)
             else:
-                for j in range(n):
-                    seqs.append(read.subread_seq(j, rpl))
-                    owners.append((ri, j))
+                cands = search_batch(self.index, seqs, cfg.sensitivity,
+                                     cfg.min_kmer_hits,
+                                     n_units=self.ref.n_units,
+                                     unit_bits=self.ref.unit_bits)
 
-        self.ctx.stats["prep_enc_s"] = (self.ctx.stats.get("prep_enc_s", 0.0)
-                                        + time.perf_counter() - tp)
-        tp = time.perf_counter()
-        if self.dev_search is not None:
-            # descriptor path: the subreads are views of the read buffer
-            # already uploaded above — no re-encode, no k-mer upload
-            starts = np.empty(len(owners), dtype=np.int32)
-            lens = np.empty(len(owners), dtype=np.int32)
-            for oi, ((ri, j), s) in enumerate(zip(owners, seqs)):
-                starts[oi] = batch[ri].buf_offset + (0 if j < 0 else j * rpl)
-                lens[oi] = len(s)
-            # on a mesh it runs on the primary device, its replica
-            cands = self.dev_search.search_views(readbuf.primary, starts,
-                                                 lens, cfg.sensitivity,
-                                                 cfg.min_kmer_hits)
-        else:
-            cands = search_batch(self.index, seqs, cfg.sensitivity,
-                                 cfg.min_kmer_hits,
-                                 n_units=self.ref.n_units,
-                                 unit_bits=self.ref.unit_bits)
-        self.ctx.stats["prep_search_s"] = (
-            self.ctx.stats.get("prep_search_s", 0.0)
-            + time.perf_counter() - tp)
-        tp = time.perf_counter()
-        per_read_long = {}
-        per_read_short = {}
-        for (ri, j), cand in zip(owners, cands):
-            if j < 0:
-                per_read_short[ri] = cand
-            else:
-                per_read_long.setdefault(ri, {})[j] = cand
+        with ctx.span("prep.score", "prep_score_stage_s", clk.id) as sp:
+            per_read_long = {}
+            per_read_short = {}
+            for (ri, j), cand in zip(owners, cands):
+                if j < 0:
+                    per_read_short[ri] = cand
+                else:
+                    per_read_long.setdefault(ri, {})[j] = cand
 
-        # --- batched scoring for long reads --------------------------------
-        long_ris = sorted(per_read_long.keys())
-        long_reads = [batch[ri] for ri in long_ris]
-        cand_lists = [[per_read_long[ri][j]
-                       for j in range(batch[ri].subread_count(rpl))]
-                      for ri in long_ris]
-        scored_batch = score_read_batch(self.ref, cfg, long_reads, cand_lists,
-                                        readbuf=readbuf)
-        # ri -> (array-native batch handle, local index); the native engine
-        # consumes the arrays wholesale, the Python path materializes
-        # per-read ScoredSubread lists lazily
-        scored_by_ri = {ri: (scored_batch, li)
-                        for li, ri in enumerate(long_ris)}
-        self.ctx.stats["prep_score_stage_s"] = (
-            self.ctx.stats.get("prep_score_stage_s", 0.0)
-            + time.perf_counter() - tp)
+            # --- batched scoring for long reads ----------------------------
+            long_ris = sorted(per_read_long.keys())
+            long_reads = [batch[ri] for ri in long_ris]
+            cand_lists = [[per_read_long[ri][j]
+                           for j in range(batch[ri].subread_count(rpl))]
+                          for ri in long_ris]
+            scored_batch = score_read_batch(self.ref, cfg, long_reads,
+                                            cand_lists, readbuf=readbuf)
+            # ri -> (array-native batch handle, local index); the native
+            # engine consumes the arrays wholesale, the Python path
+            # materializes per-read ScoredSubread lists lazily
+            scored_by_ri = {ri: (scored_batch, li)
+                            for li, ri in enumerate(long_ris)}
+        clk.prep_end = sp.t1
         return readbuf, per_read_short, scored_by_ri
 
-    def _compute_waves(self, batch: List[Read], prep):
+    def _compute_waves(self, batch: List[Read], prep, clk: BatchClock):
         """Stage 2 of a batch: per-read jobs with wave-batched alignments.
-        Runs in a wave-pool thread; up to two batches concurrently."""
+        Runs in a wave-pool thread; up to two batches concurrently. Its
+        seconds go to waves_wall_s, a counter and no profiler range: the
+        engine's and the waves' named spans run inside it."""
+        with self.ctx.span(None, "waves_wall_s") as sp:
+            out = self._waves(batch, prep, clk.id)
+        clk.wave_start, clk.wave_end = sp.t0, sp.t1
+        return out
+
+    def _waves(self, batch: List[Read], prep, bid: int):
         cfg = self.cfg
         readbuf, per_read_short, scored_by_ri = prep
         from . import batcher as _batcher
@@ -320,7 +352,6 @@ class Pipeline:
             return lambda: self.processor.process(read, sb.subreads(li))
 
         import os
-        tw = time.perf_counter()
 
         # --- native engine path for long reads ---------------------------
         native_out = {}
@@ -342,7 +373,8 @@ class Pipeline:
                         outs = eng.run_batch(
                             self.ctx, readbuf,
                             [batch[ri] for ri in all_ris], sb,
-                            shorts=[per_read_short[ri] for ri in short_ris])
+                            shorts=[per_read_short[ri] for ri in short_ris],
+                            batch=bid)
                     finally:
                         self._native_pool.put(eng)
                 except BaseException as e:
@@ -361,9 +393,7 @@ class Pipeline:
                     else:
                         native_out[ri] = o
                 if n_failed:
-                    with self.ctx._stats_lock:
-                        self.ctx.stats["native_failed"] = (
-                            self.ctx.stats.get("native_failed", 0) + n_failed)
+                    self.ctx.add("native_failed", n_failed)
 
         jobs = []
         job_key = {}
@@ -413,17 +443,28 @@ class Pipeline:
         for ri, o in precomputed.items():
             job_key[ri] = len(outcomes)
             outcomes.append(o)
-        self.ctx.stats["waves_wall_s"] = (
-            self.ctx.stats.get("waves_wall_s", 0.0)
-            + time.perf_counter() - tw)
         return outcomes, job_key
 
     def _emit(self, batch: List[Read], prep, outcomes, job_key,
-              writer: SamWriter):
+              writer: SamWriter, clk: BatchClock):
         """Emit in reference order (shorts first per intake group of 10,
         then longs; NGM.cpp:190-246 + CS.cpp:276-318)."""
+        with self.ctx.span("emit", "emit_s", clk.id) as sp:
+            self._write(batch, prep, outcomes, job_key, writer)
+        clk.emit_start, clk.emit_end = sp.t0, sp.t1
+
+    def _account(self, clk: BatchClock):
+        """An emitted batch's two waits: prepared, for a wave slot; its
+        waves ended, for its emission, behind an older batch still in its
+        waves or behind the main thread's wait on prep (run() takes a
+        prepared batch first whenever a wave slot is free)."""
+        self.ctx.add("batch_wait_wave_s", clk.wave_start - clk.prep_end)
+        self.ctx.add("batch_wait_emit_s", clk.emit_start - clk.wave_end)
+        self.ctx.add("batches", 1)
+
+    def _write(self, batch: List[Read], prep, outcomes, job_key,
+               writer: SamWriter):
         readbuf, per_read_short, scored_by_ri = prep
-        te = time.perf_counter()
         for g0 in range(0, len(batch), INTAKE_GROUP):
             group = list(range(g0, min(g0 + INTAKE_GROUP, len(batch))))
             for ri in group:
@@ -455,8 +496,6 @@ class Pipeline:
                         self.stats.get("align_frac_sum", 0.0)
                         + min(1.0, bp / read.length))
                 self._count(is_mapped)
-        self.ctx.stats["emit_s"] = (self.ctx.stats.get("emit_s", 0.0)
-                                    + time.perf_counter() - te)
 
     def _count(self, mapped: bool):
         self.stats["reads"] += 1

@@ -526,13 +526,11 @@ class DeviceSearch:
         ).to(self.device)
 
     def _stat(self, key: str, dt):
-        """Accumulate a stage-timing stat or counter on the active
-        DeviceContext (the bench/progress observability channel)."""
+        """Add to a counter of the active DeviceContext."""
         from ..ops import device_engine
         ctx = device_engine.current()
         if ctx is not None:
-            with ctx._stats_lock:
-                ctx.stats[key] = ctx.stats.get(key, 0) + dt
+            ctx.add(key, dt)
 
     def _too_long(self):
         """A batch with a subread longer than SL: on the CPU, counted and
@@ -559,7 +557,6 @@ class DeviceSearch:
         k = index.k
         bin_size = index.bin_size
         dev = self.device
-        t0 = time.perf_counter()
         nvs = votes_per_sub.astype(np.int64)
         NSp = int(fs_dev.shape[0])
         classes = {}
@@ -613,16 +610,12 @@ class DeviceSearch:
         if outliers:
             self._stat("search_v1_outliers", len(outliers))
         v1_pending = [v1_single(si) for si in outliers]
-        self._stat("search_dispatch_s", time.perf_counter() - t0)
 
-        t0 = time.perf_counter()
         fetched = _fetch([o for _, _, o in pending]
                          + [o for _, _, o in v1_pending])
         v1_fetched = fetched[len(pending):]
         fetched = fetched[:len(pending)]
-        self._stat("search_fetch_s", time.perf_counter() - t0)
 
-        t0 = time.perf_counter()
         retry = []
         parts = []                     # (subs, p1, fwd counts, rev counts)
         cmask = (1 << COUNT_BITS) - 1
@@ -675,7 +668,6 @@ class DeviceSearch:
         order = np.argsort(gsub, kind="stable")
         res = self._unpack(gsub[order], p1[order], cnt_f[order],
                            cnt_r[order], k_counts, lens, n_seqs)
-        self._stat("search_post_s", time.perf_counter() - t0)
         return res
 
     def _unpack(self, gsub, p1, cnt_f, cnt_r, k_counts, lens, n_seqs):
@@ -719,7 +711,6 @@ class DeviceSearch:
         if any(len(s) > SL for s in seqs):
             return self._too_long()
         from ..io.reference import _CHAR2CODE
-        t0 = time.perf_counter()
         total = sum(len(s) for s in seqs)
         concat = np.full(_pow2(total + 8, 4096), 4, dtype=np.uint8)
         starts = np.empty(len(seqs), dtype=np.int32)
@@ -732,7 +723,6 @@ class DeviceSearch:
                 np.frombuffer(s, dtype=np.uint8)]
             pos += len(s)
         codes_dev = torch.from_numpy(concat).to(self.device)
-        self._stat("search_host_s", time.perf_counter() - t0)
         return self.search_views(codes_dev, starts, lens, sensitivity,
                                  min_kmer_hits)
 
@@ -767,7 +757,6 @@ class DeviceSearch:
             return self._too_long()
 
         dev = self.device
-        t0 = time.perf_counter()
         NSp = _size_class(n_seqs, 256)
         st_pad = np.zeros(NSp, dtype=np.int32)
         ln_pad = np.zeros(NSp, dtype=np.int32)
@@ -775,7 +764,6 @@ class DeviceSearch:
         ln_pad[:n_seqs] = lens
         st_dev = torch.from_numpy(st_pad).to(dev)
         ln_dev = torch.from_numpy(ln_pad).to(dev)
-        self._stat("search_host_s", time.perf_counter() - t0)
         t0 = time.perf_counter()
         (votes_dev, kcnt_dev, fs_dev, fc_dev, rs_dev,
          rcnt_dev) = _count_kernel(self.bucket_pairs, codes_dev,
