@@ -1541,8 +1541,12 @@ def recorded_shapes():
     run is over (so the trace holds no kernel of the record's). One lock
     around record and launch keeps the record in launch order: the pipeline
     launches from several threads, all on the default stream. Yields
-    {wrapper: [(shape, (ymin, pk) or None), ...]}."""
+    {wrapper: [(shape, (ymin, pk) or None), ...]}; a native wave's launches
+    (pipeline/native_engine.py) are recorded from what it launched, ymin
+    None."""
+    import torch
     from ngmlr_tpu_torch.ops import kernels as K
+    from ngmlr_tpu_torch.pipeline import native_engine as NE
     shapes = {n: [] for n in PER_LAUNCH}
     orig = {n: getattr(K, n) for n in PER_LAUNCH}
     lock = threading.Lock()
@@ -1563,9 +1567,22 @@ def recorded_shapes():
         with lock:
             shapes["convex_backtrack"].append((tuple(dirs.shape), None))
             return orig["convex_backtrack"](dirs, ymin, pk, bx, by)
+
+    def native(wave):
+        # a native wave's chains (pipeline/native_engine.py), recorded
+        # as it launched them, under the lock around its launch; their
+        # windows are worked out once the run is over (ymin None)
+        for kind, blk, *shape in wave.launched()[0]:
+            if kind == "align":
+                B, (Wp, Hp, L, _) = len(blk), shape
+                pk = torch.from_numpy(blk)
+                shapes["corridor_windows"].append(((B, Wp + Hp), None))
+                shapes["convex_fill"].append(((B, Wp + Hp, L), (None, pk)))
+                shapes["convex_backtrack"].append(((B, Wp + Hp, L), None))
     K.corridor_windows, K.convex_fill, K.convex_backtrack = cw, cf, bt
     try:
-        yield shapes
+        with NE.observe_waves(native):
+            yield shapes
     finally:
         for n, f in orig.items():
             setattr(K, n, f)
@@ -1579,6 +1596,7 @@ def per_launch_times(events, shapes):
     device_ms, ms_per_launch[, wavefronts, us_per_wavefront]}}}, or a note
     where the trace and the record disagree in count."""
     import torch
+    from ngmlr_tpu_torch.ops import kernels as K
     dev = sorted((e.time_range.start, e.name, e.time_range.elapsed_us() / 1e3)
                  for e in events
                  if e.device_type == torch.autograd.DeviceType.CUDA)
@@ -1599,6 +1617,8 @@ def per_launch_times(events, shapes):
             g["device_ms"] += sum(p[i] for p in per)
             if windows is not None:
                 ymin, pk = windows
+                if ymin is None:
+                    ymin = K.corridor_windows_plain(pk, shape[1])[0]
                 g["wavefronts"] = g.get("wavefronts", 0) + int(
                     (ymin < pk[:, 5:6]).sum(dim=1).max())
         for g in groups.values():
@@ -2911,9 +2931,12 @@ def row_reach():
     carry hi = 0), how many of them start at 2^31 or above, their least ds,
     and their least and largest unit (bits 28+ of W); then call the
     wrapper. Yields {wrapper: [(rows, rows past 2^31, least ds, least unit,
-    largest unit) tensors]}, read once the run is over (reach_of)."""
+    largest unit) tensors]}, read once the run is over (reach_of). A
+    native wave's launches (pipeline/native_engine.py) are recorded from
+    the blocks it launched, on the host."""
     import torch
     from ngmlr_tpu_torch.ops import kernels as K
+    from ngmlr_tpu_torch.pipeline import native_engine as NE
     seen = {n: [] for n in HIGH_WRAPPERS}
     orig = {n: getattr(K, n) for n in HIGH_WRAPPERS}
 
@@ -2931,12 +2954,22 @@ def row_reach():
             note(name, a[pk_arg])
             return orig[name](*a)
         return f
+    def native(wave):
+        # a native wave's launches (pipeline/native_engine.py), from the
+        # blocks it launched
+        for kind, blk, *_ in wave.launched()[0]:
+            pk = torch.from_numpy(blk)
+            for name in (("score_fill",) if kind == "score" else
+                         ("corridor_windows", "convex_fill",
+                          "convex_backtrack")):
+                note(name, pk)
     # the position of the rows argument in each wrapper's signature
     for name, i in (("score_fill", 2), ("corridor_windows", 0),
                     ("convex_fill", 2), ("convex_backtrack", 2)):
         setattr(K, name, wrap(name, i))
     try:
-        yield seen
+        with NE.observe_waves(native):
+            yield seen
     finally:
         for n, f in orig.items():
             setattr(K, n, f)
@@ -3327,8 +3360,12 @@ def phase_fuzz():
 def largest_align_launch():
     """Keeps, while inside, the arguments and outputs of the largest call
     of device_engine._convex_kernel (by its B x (Wp + Hp) x L direction
-    bytes). Yields {"bytes", "args", "out"}."""
+    bytes). Yields {"bytes", "args", "out", "native"}. Of a native wave's
+    chains (pipeline/native_engine.py) it keeps the block launched and the
+    results the wave wrote into its own arena (native True)."""
+    import torch
     from ngmlr_tpu_torch.ops import device_engine
+    from ngmlr_tpu_torch.pipeline import native_engine as NE
     seen = {"bytes": 0}
     orig = device_engine._convex_kernel
     lock = threading.Lock()
@@ -3339,19 +3376,40 @@ def largest_align_launch():
         n = int(pk.shape[0]) * (Wp + Hp) * L
         with lock:
             if n > seen["bytes"]:
-                seen.update(bytes=n, out=out,
+                seen.update(bytes=n, out=out, native=False,
                             args=(genome, readbuf, pk, params, Wp, Hp, L))
         return out
+
+    def native(wave):
+        # under the lock around the wave's launch, so the copy of its
+        # results is queued before anything else reuses the arena
+        for kind, blk, *shape in wave.launched()[0]:
+            if kind != "align":
+                continue
+            Wp, Hp, L, res = shape
+            n = len(blk) * (Wp + Hp) * L
+            with lock:
+                if n > seen["bytes"]:
+                    seen.update(bytes=n, native=True,
+                                out=wave.chain_results(res, len(blk)),
+                                args=(wave.ctx.genome, wave.readbuf,
+                                      torch.from_numpy(blk).to(wave.dev),
+                                      wave.params, Wp, Hp, L))
     device_engine._convex_kernel = ck
     try:
-        yield seen
+        with NE.observe_waves(native):
+            yield seen
     finally:
         device_engine._convex_kernel = orig
 
 
 def replay_rows(seen):
-    """The largest align launch's first row (a real one: the slots past a
-    wave's rows are the padding) copied into each of its B slots and
+    """The largest align launch held against the kernels' wrappers. Where a
+    native wave launched it, the same block launched again through
+    device_engine._convex_kernel must give, row for row, the packed ops and
+    scalars the wave wrote into its own arena (its layout, its fill
+    scratch, its slot offsets). Then its first row (a real one: the slots
+    past a wave's rows are the padding) copied into each of its B slots and
     launched again: past B x TpP x L = 2^31 the rows at the end address
     direction bytes past 2^31 in convex_fill and convex_backtrack. Every
     row's packed ops and scalars must equal the first row's in the
@@ -3360,16 +3418,28 @@ def replay_rows(seen):
     from ngmlr_tpu_torch.ops import device_engine
     genome, readbuf, pk, params, Wp, Hp, L = seen["args"]
     B = int(pk.shape[0])
-    packed, scalars = device_engine._convex_kernel(
-        genome, readbuf, pk[:1].repeat(B, 1), params, Wp=Wp, Hp=Hp, L=L)
-    packed = packed.reshape(B, -1)
-    want_p = seen["out"][0].reshape(B, -1)[0]
-    want_s = seen["out"][1][0]
-    bad = [b for b in range(B) if not (torch.equal(packed[b], want_p)
-                                       and torch.equal(scalars[b], want_s))]
+    want_p = seen["out"][0].reshape(B, -1)
+    want_s = seen["out"][1]
     rec = {"shape": [B, Wp + Hp, L], "dirs_bytes": seen["bytes"],
-           "last_row_from": (B - 1) * (Wp + Hp) * L,
-           "rows_equal": B - len(bad)}
+           "native": seen["native"]}
+
+    def unequal(packed, scalars, row=None):
+        packed = packed.reshape(B, -1)
+        return [b for b in range(B) if not (
+            torch.equal(packed[b], want_p[b if row is None else row])
+            and torch.equal(scalars[b], want_s[b if row is None else row]))]
+    if seen["native"]:
+        bad = unequal(*device_engine._convex_kernel(
+            genome, readbuf, pk, params, Wp=Wp, Hp=Hp, L=L))
+        rec["rows_equal_wrappers"] = B - len(bad)
+        check(not bad, "the native wave's own results of the largest align "
+              "launch %s differ from the wrappers' launch in rows %s"
+              % (rec["shape"], bad))
+    bad = unequal(*device_engine._convex_kernel(
+        genome, readbuf, pk[:1].repeat(B, 1), params, Wp=Wp, Hp=Hp, L=L),
+        row=0)
+    rec.update(last_row_from=(B - 1) * (Wp + Hp) * L,
+               rows_equal=B - len(bad))
     check(not bad, "the largest align launch's row, copied into slots %s of "
           "%s, gave other ops or scalars" % (bad, rec["shape"]))
     return rec

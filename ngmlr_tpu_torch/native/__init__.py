@@ -125,6 +125,9 @@ def get_lib():
 
 
 _ENGINE_SRC = os.path.join(_HERE, "engine.cpp")
+# the wave planner, which the engine library exports for the CPU tests and
+# the kernel library (ops/build.py) compiles into csrc/wave.cu
+_PLAN_SRC = os.path.join(os.path.dirname(_HERE), "csrc", "wave_plan.h")
 _ENGINE_LIB = os.path.join(_HERE, "libngmlr_torch_engine.so")
 _engine_lib = None
 _engine_tried = False
@@ -172,8 +175,8 @@ def get_engine_lib():
         _engine_tried = True
         try:
             if (not os.path.exists(_ENGINE_LIB)
-                    or os.path.getmtime(_ENGINE_LIB) < os.path.getmtime(_ENGINE_SRC)
-                    or os.path.getmtime(_ENGINE_LIB) < os.path.getmtime(_SRC)):
+                    or any(os.path.getmtime(_ENGINE_LIB) < os.path.getmtime(s)
+                           for s in (_ENGINE_SRC, _SRC, _PLAN_SRC))):
                 _build_engine()
             lib = ctypes.CDLL(_ENGINE_LIB)
             lib.engine_create.restype = ctypes.c_void_p
@@ -217,6 +220,11 @@ def get_engine_lib():
                 ctypes.POINTER(RecordABI),
                 ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int64),
                 ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int64)]
+            p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+            lib.wave_plan_align.restype = i64
+            lib.wave_plan_align.argtypes = [p, i64, i32, i64, i64, p, p, p, p]
+            lib.wave_plan_score.restype = i64
+            lib.wave_plan_score.argtypes = [p, i64, p, p, p]
             lib.engine_finish_batch.argtypes = [ctypes.c_void_p]
             lib.engine_abort_batch.argtypes = [ctypes.c_void_p]
             _engine_lib = lib

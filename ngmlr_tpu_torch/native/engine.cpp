@@ -45,6 +45,8 @@
 #include <time.h>
 #include <ucontext.h>
 
+#include "../csrc/wave_plan.h"
+
 // ops_convert from cigar_native.cpp (compiled into the same .so)
 extern "C" {
 struct CigarResult {
@@ -2737,6 +2739,48 @@ void engine_get_record(void* h, int32_t ri, int32_t j, RecordABI* out,
   *cigar_len = (int64_t)rec.align.cigar.size();
   *md = rec.align.md.data();
   *md_len = (int64_t)rec.align.md.size();
+}
+
+// The wave planner of csrc/wave.cu (csrc/wave_plan.h), for the CPU tests,
+// which hold it against DeviceContext's plan_align_rows and
+// plan_score_rows. chunks [n, 6]: L, Wp, Hp, B, first row in rows, rows;
+// counts: rows planned, rows refused, cells, useful cells. Returns the
+// chunks.
+int64_t wave_plan_align(const int32_t* pk, int64_t n, int32_t conservative,
+                        int64_t lanes, int64_t dirs_cap, int64_t* chunks,
+                        int32_t* rows, int32_t* failed, int64_t* counts) {
+  ngt_plan::AlignPlan p;
+  ngt_plan::plan_align(pk, n, conservative != 0, lanes, dirs_cap, p);
+  for (size_t c = 0; c < p.chunks.size(); ++c) {
+    const auto& k = p.chunks[c];
+    const int64_t v[6] = {k.L, k.Wp, k.Hp, k.B, k.row0, k.n};
+    memcpy(chunks + c * 6, v, sizeof v);
+  }
+  std::copy(p.rows.begin(), p.rows.end(), rows);
+  std::copy(p.failed.begin(), p.failed.end(), failed);
+  counts[0] = (int64_t)p.rows.size();
+  counts[1] = (int64_t)p.failed.size();
+  counts[2] = p.cells;
+  counts[3] = p.cells_useful;
+  return (int64_t)p.chunks.size();
+}
+
+// buckets [n, 5]: Rp, Qp, B, first row in rows, rows; counts: rows
+// planned, cells, useful cells. Returns the buckets.
+int64_t wave_plan_score(const int32_t* pk, int64_t n, int64_t* buckets,
+                        int32_t* rows, int64_t* counts) {
+  ngt_plan::ScorePlan p;
+  ngt_plan::plan_score(pk, n, p);
+  for (size_t b = 0; b < p.buckets.size(); ++b) {
+    const auto& k = p.buckets[b];
+    const int64_t v[5] = {k.Rp, k.Qp, k.B, k.row0, k.n};
+    memcpy(buckets + b * 5, v, sizeof v);
+  }
+  std::copy(p.rows.begin(), p.rows.end(), rows);
+  counts[0] = (int64_t)p.rows.size();
+  counts[1] = p.cells;
+  counts[2] = p.cells_useful;
+  return (int64_t)p.buckets.size();
 }
 
 }  // extern "C"

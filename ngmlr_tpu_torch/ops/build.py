@@ -1,7 +1,7 @@
 """nvcc build of the hand-written CUDA kernels (ngmlr_tpu_torch/csrc).
 
 Each ``csrc/*.cu`` compiles to an object in its own nvcc process, all
-started together, and the objects link into one shared library with a
+started together (headers, ``*.cuh`` and ``*.h``, count in the key), and the objects link into one shared library with a
 plain C interface, loaded with ctypes. The build runs at first use and is
 keyed on a hash of the sources and flags, so a fresh checkout builds
 everything from the repository's own files and a second process reuses the
@@ -45,7 +45,7 @@ def _nvcc() -> str:
 
 def _sources():
     return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
-                  if f.endswith((".cu", ".cuh")))
+                  if f.endswith((".cu", ".cuh", ".h")))
 
 
 def _digest() -> str:
@@ -121,6 +121,17 @@ def _bind(lib):
     lib.ngt_convex_fill_state_bytes.restype = i64
     lib.ngt_convex_fill_smem_cap.argtypes = []
     lib.ngt_convex_fill_smem_cap.restype = i64
+    # the native wave (csrc/wave.cu, pipeline/native_engine.NativeWave)
+    lib.ngt_wave_create.argtypes = []
+    lib.ngt_wave_create.restype = p
+    lib.ngt_wave_destroy.argtypes = [p]
+    lib.ngt_wave_destroy.restype = None
+    lib.ngt_wave_launch.argtypes = [p, p, i64, p, i64, p]
+    lib.ngt_wave_launch.restype = ctypes.c_int
+    lib.ngt_wave_fetch.argtypes = [p, p, p]
+    lib.ngt_wave_fetch.restype = ctypes.c_int
+    lib.ngt_wave_plan.argtypes = [p, p, p, p, p]
+    lib.ngt_wave_plan.restype = None
     return lib
 
 

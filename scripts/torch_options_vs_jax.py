@@ -574,17 +574,28 @@ def score_buckets():
     """Counts score_fill's calls by (Rp, Qp) bucket while inside (a
     stand-in for the wrapper, as scale.fill_lanes). Yields the Counter."""
     from ngmlr_tpu_torch.ops import kernels as K
+    from ngmlr_tpu_torch.pipeline import native_engine as NE
     seen = collections.Counter()
     orig = K.score_fill
     lock = threading.Lock()
 
-    def sf(genome, readbuf, pk, Rp, Qp):
+    def note(Rp, Qp):
         with lock:
             seen["%dx%d" % (Rp, Qp)] += 1
+
+    def sf(genome, readbuf, pk, Rp, Qp):
+        note(Rp, Qp)
         return orig(genome, readbuf, pk, Rp, Qp)
+
+    def native(wave):
+        # what a native wave launched (pipeline/native_engine.py)
+        for kind, _, *shape in wave.launched()[0]:
+            if kind == "score":
+                note(*shape)
     K.score_fill = sf
     try:
-        yield seen
+        with NE.observe_waves(native):
+            yield seen
     finally:
         K.score_fill = orig
 
@@ -742,6 +753,7 @@ def report(run):
     rec = {k: run.get(k) for k in keep}
     rec.update(diff=len(run.get("diff", [])),
                engine_waves=run["stats"].get("engine_waves", 0),
+               native_waves=run["stats"].get("native_waves", 0),
                lane_bound_retries=run["stats"].get("lane_bound_retries", 0),
                search_counts={k: v for k, v in sorted(run["stats"].items())
                               if k.startswith("search_v")})

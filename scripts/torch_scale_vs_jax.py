@@ -595,20 +595,31 @@ def fill_lanes():
     wrapper, as chip_smoke.recorded_shapes). Yields {"lanes": Counter,
     "dirs_max": [B, TpP, L] of the largest call}."""
     from ngmlr_tpu_torch.ops import kernels as K
+    from ngmlr_tpu_torch.pipeline import native_engine as NE
     seen = {"lanes": collections.Counter(), "dirs_max": [0, 0, 0]}
     orig = K.convex_fill
     lock = threading.Lock()
 
-    def cf(genome, readbuf, pk, params, ymin, ymax, L):
-        shape = [*ymin.shape, L]
+    def note(shape):
         with lock:
-            seen["lanes"][L] += 1
+            seen["lanes"][shape[2]] += 1
             if np.prod(shape) > np.prod(seen["dirs_max"]):
                 seen["dirs_max"] = shape
+
+    def cf(genome, readbuf, pk, params, ymin, ymax, L):
+        note([*ymin.shape, L])
         return orig(genome, readbuf, pk, params, ymin, ymax, L)
+
+    def native(wave):
+        # what a native wave launched (pipeline/native_engine.py)
+        for kind, blk, *shape in wave.launched()[0]:
+            if kind == "align":
+                Wp, Hp, L, _ = shape
+                note([len(blk), Wp + Hp, L])
     K.convex_fill = cf
     try:
-        yield seen
+        with NE.observe_waves(native):
+            yield seen
     finally:
         K.convex_fill = orig
 
@@ -621,21 +632,29 @@ def align_refusals():
     refusal), by wrapping the method as fill_lanes wraps the fill. Yields
     the list of [W, qlen, corridor width] of each refused row."""
     from ngmlr_tpu_torch.ops.device_engine import DeviceContext
+    from ngmlr_tpu_torch.pipeline import native_engine as NE
     seen = []
     orig = DeviceContext.align_dispatch_pk
     lock = threading.Lock()
 
+    def note(rows):
+        with lock:
+            seen.extend([int(r[3]) & ((1 << 28) - 1), int(r[5]), int(r[9])]
+                        for r in rows)
+
     def dispatch(self, pk_all, params, readbuf=None, conservative_L=False):
         pend = orig(self, pk_all, params, readbuf, conservative_L)
         if pend is not None:
-            with lock:
-                seen.extend([int(pk_all[i, 3]) & ((1 << 28) - 1),
-                             int(pk_all[i, 5]), int(pk_all[i, 9])]
-                            for i in pend[4])
+            note(pk_all[pend[4]])
         return pend
+
+    def native(wave):
+        # the rows a native wave refused (pipeline/native_engine.py)
+        note(wave.launched()[1])
     DeviceContext.align_dispatch_pk = dispatch
     try:
-        yield seen
+        with NE.observe_waves(native):
+            yield seen
     finally:
         DeviceContext.align_dispatch_pk = orig
 
@@ -724,7 +743,8 @@ def report(run, setup_s):
     rec = {k: run[k] for k in keep}
     rec.update(diff=len(run["diff"]), setup_s=setup_s,
                lane_bound_retries=run["stats"].get("lane_bound_retries", 0),
-               engine_waves=run["stats"].get("engine_waves", 0))
+               engine_waves=run["stats"].get("engine_waves", 0),
+               native_waves=run["stats"].get("native_waves", 0))
     return rec
 
 
@@ -804,6 +824,8 @@ def test8_lanes(device):
            "diff": bad, "setup_s": setup_s,
            "map_s": map_s, "launches": launches,
            "lane_bound_retries": p.ctx.stats.get("lane_bound_retries", 0),
+           "engine_waves": p.ctx.stats.get("engine_waves", 0),
+           "native_waves": p.ctx.stats.get("native_waves", 0),
            **shapes}
     return rec, not bad
 

@@ -7,7 +7,9 @@ fuzz (scripts/torch_fuzz_vs_jax.py) against the JAX package's committed
 SAM, and phase 4's reads, the long SV reads and the ultra-long reads on
 its genome (scripts/torch_scale_vs_jax.py) and the CLI's option sets
 over FASTQ input (scripts/torch_options_vs_jax.py) against the JAX
-package's committed digests, on the card. Marked ``cuda``: every
+package's committed digests, and the native wave's round trip
+(pipeline/native_engine.NativeWave, csrc/wave.cu) against the Python
+wave's, on the card. Marked ``cuda``: every
 test skips where torch sees no card. The file imports neither jax nor the test conftest, so it also runs on a
 machine with a card and no JAX:
 
@@ -334,6 +336,159 @@ def test_golden_test2_on_the_card(dev):
     assert p.dev_search is not None
     assert launches["expand_votes"] == p.ctx.stats["search_v2_launches"]
     assert all(launches[k] > 0 for k in launches), launches
+    # every engine wave's device round trip ran in native code, which
+    # counts each kernel where it launched: as many as the plans' chains
+    # and buckets
+    st = p.ctx.stats
+    assert st["native_waves"] == st["engine_waves"] > 0
+    assert launches["score_fill"] == st["score_launches"]
+    for k in ("corridor_windows", "convex_fill", "convex_backtrack"):
+        assert launches[k] == st["align_launches"], (k, launches, st)
+
+
+# one synthetic wave per case: align rows (_align_rows' geometry) and score
+# rows, some past the ssw guard; cap and lanes force DIRS_CAP's splits and
+# refusals and the lane-bound retry
+NATIVE_WAVES = {
+    "modes": dict(n=48, W=(200, 3000), H=(200, 3000), widths=(24, 400)),
+    "wide": dict(n=6, W=(12000, 16000), H=(12000, 16000),
+                 widths=(9000, 24000)),
+    "cap_split": dict(n=24, W=(2100, 4000), H=(2100, 4000), widths=(24, 100),
+                      cap=16 << 20),
+    "cap_refusal": dict(n=24, W=(300, 9000), H=(300, 9000),
+                        widths=(24, 400), cap=4 << 20),
+    "lane_retry": dict(n=24, W=(400, 600), H=(300, 500), widths=(24, 60),
+                       lanes=128),
+}
+
+
+def _native_wave_inputs(case):
+    c = NATIVE_WAVES[case]
+    rng = np.random.default_rng(sorted(NATIVE_WAVES).index(case) + 40)
+    G, R = 1 << 21, 1 << 20
+    genome = rng.integers(0, 5, G).astype(np.uint8)
+    reads = rng.integers(0, 5, R).astype(np.uint8)
+    apk = _align_rows(rng, c["n"], G, R, c["W"], c["H"], c["widths"])
+    ns = 40
+    spk = np.zeros((ns, 7), np.int32)
+    W = rng.choice([306, 700, 2000, 99999], ns)
+    q = rng.choice([256, 300, 1500], ns)
+    spk[:, 0] = rng.integers(0, G - 100000, ns)
+    spk[:, 1] = spk[:, 0] + W
+    spk[:, 2] = rng.integers(0, 6, ns)
+    spk[:, 3], spk[:, 5] = W, q
+    spk[:, 4] = rng.integers(0, R - 2000, ns)
+    spk[:, 6] = np.arange(ns) & 1
+    return c, genome, reads, apk, spk
+
+
+def _posted(a_scores, bx, by, ok, ops, s_results, na, ns):
+    """The posted arrays as bytes: scores by their bits, ops rows as the
+    bytes their pointers name (None for a null pointer)."""
+    return (np.asarray(a_scores[:na], np.float32).view(np.int32).tolist(),
+            list(bx[:na]), list(by[:na]), list(ok[:na]), ops,
+            np.asarray(s_results[:ns], np.float32).view(np.int32).tolist())
+
+
+@pytest.mark.parametrize("case", list(NATIVE_WAVES))
+def test_native_wave_posts_the_python_waves_arrays(dev, case, monkeypatch):
+    """One synthetic wave through the Python wave (align_dispatch_pk,
+    score_dispatch_np, fetch_waves_np, post_arrays) and through the native
+    round trip (NativeWave.launch, fetch): the arrays handed to
+    engine_post_results byte for byte, the counters and the launches."""
+    import ctypes
+    from ngmlr_tpu_torch.pipeline import native_engine as NE
+    c, genome, reads, apk, spk = _native_wave_inputs(case)
+    na, ns = len(apk), len(spk)
+    if "cap" in c:
+        monkeypatch.setattr(tde, "dirs_cap", lambda: c["cap"])
+    if "lanes" in c:
+        orig = tde.align_lanes
+        monkeypatch.setattr(tde, "align_lanes", lambda pk, cons: (
+            orig(pk, cons) if cons else np.full(len(pk), c["lanes"])))
+    ctx = tde.DeviceContext(genome, device=dev)
+    rb = ctx.upload_reads(reads)
+    params = tuple(PARAMS)
+    keys = NE.COUNT_KEYS[:-1]
+
+    st0, k0 = dict(ctx.stats), dict(K.launches)
+    apend = ctx.align_dispatch_pk(apk, params, readbuf=rb)
+    a_res, s_np = ctx.fetch_waves_np(apend,
+                                     ctx.score_dispatch_np(spk, readbuf=rb))
+    sc, bx, by, ok, ptrs, lens, s_res, keep = NE.post_arrays(na, ns, a_res,
+                                                             s_np)
+    want = _posted(sc, bx, by, ok, [
+        ctypes.string_at(ptrs[i], int(lens[i])) if ptrs[i] else None
+        for i in range(na)], s_res, na, ns)
+    want_n = {k: ctx.stats[k] - st0[k] for k in keys}
+    want_k = {k: K.launches[k] - k0[k] for k in K.launches}
+
+    wave = NE.NativeWave(ctx, params)
+    wave.bind(rb)
+    if "lanes" in c:
+        wave.cfg[NE._C["lanes"]] = c["lanes"]
+    apk_c, spk_c = np.ascontiguousarray(apk), np.ascontiguousarray(spk)
+    st1, k1 = dict(ctx.stats), dict(K.launches)
+    wave.launch(apk_c.ctypes.data, na, spk_c.ctypes.data, ns)
+    launched, refused = wave.launched()
+    out = wave.fetch()
+    # each chain's results in the wave's arena, read before flush hands a
+    # large arena back (and not after a retry, which reuses the arena)
+    arena = [] if case == "lane_retry" else [
+        (x, wave.chain_results(x[5], len(x[1])))
+        for x in launched if x[0] == "align"]
+
+    def arr(i, ct, n):
+        return np.ctypeslib.as_array(ctypes.cast(out[i], ctypes.POINTER(ct)),
+                                     shape=(n,)).copy()
+    lens = arr(5, ctypes.c_int64, na)
+    table = ctypes.cast(out[4], ctypes.POINTER(ctypes.c_void_p))
+    got = _posted(arr(0, ctypes.c_float, na), arr(1, ctypes.c_int32, na),
+                  arr(2, ctypes.c_int32, na), arr(3, ctypes.c_uint8, na),
+                  [ctypes.string_at(table[i], int(lens[i])) if table[i]
+                   else None for i in range(na)],
+                  arr(6, ctypes.c_float, ns), na, ns)
+    wave.flush(1)
+    torch.cuda.synchronize()
+    assert got == want
+    assert {k: ctx.stats[k] - st1[k] for k in keys} == want_n
+    assert ctx.stats["native_waves"] - st1["native_waves"] == 1
+    assert ctx.stats["engine_waves"] - st1["engine_waves"] == 1
+    assert {k: K.launches[k] - k1[k] for k in K.launches} == want_k
+    assert want_n["score_problems"] == ns and -1.0 in s_np
+    assert sum(o is not None for o in want[4]) > 0
+    chunks = tde.plan_align_rows(apk, False, tde.dirs_cap())[0]
+    # what the native wave reports it launched: the Python plan's blocks
+    # and shapes, in its order
+    buckets = tde.plan_score_rows(spk)[1]
+    assert [(k, b.tolist(), *sh[:3]) for k, b, *sh in launched] == [
+        ("align", tde.align_block(apk, idxs, tde._pad_align(len(idxs))
+                                  ).tolist(), Wp, Hp, L)
+        for L, Wp, Hp, idxs in chunks] + [
+        ("score", tde.score_block(spk, idxs, tde._pad_score(len(idxs))
+                                  ).tolist(), Rp, Qp)
+        for Rp, Qp, idxs in buckets]
+    assert refused.tolist() == apk[apend[4]].tolist()
+    # the arena's results are the wrappers' launch of the same block
+    for (_, blk, Wp, Hp, L, _), (got_p, got_s) in arena:
+        packed, scalars = tde._convex_kernel(
+            ctx.genome, wave.readbuf, torch.from_numpy(blk).to(dev),
+            wave.params, Wp=Wp, Hp=Hp, L=L)
+        assert torch.equal(got_p, packed.reshape(len(blk), -1))
+        assert torch.equal(got_s, scalars)
+    assert len(arena) == (0 if case == "lane_retry" else len(chunks))
+    assert (want_n["lane_bound_retries"] > 0) == (case == "lane_retry")
+    if case == "cap_refusal":
+        assert apend[4]
+    elif case != "cap_split":
+        assert not apend[4]
+    if case == "cap_split":
+        shapes = [ch[:3] for ch in chunks]
+        assert len(shapes) > len(set(shapes))
+    if case == "wide":
+        # the wide fill, its ring buffers in shared memory and in global
+        # scratch
+        assert {L for L, *_ in chunks} >= {6144, 16384}
 
 
 def _check_mesh_run(p, launches, devices):
@@ -712,6 +867,8 @@ def test_fuzz_seed_501_on_the_card(dev, tmp_path, monkeypatch):
                                                      "device"]
     for name, run in runs.items():
         assert run["sam"] == want, name
+        st = run["stats"]
+        assert st["native_waves"] == st["engine_waves"] > 0, name
     assert runs["gate"]["launches"]["expand_votes"] > 0
 
 
@@ -733,6 +890,7 @@ def test_scale_script_holds_phase4_and_svlong_on_the_card(dev, tmp_path,
         for r in runs.values():
             assert r["diff"] == 0 and r["file_identical"]
             assert r["identical"] == r["reads"] > 0
+            assert r["native_waves"] == r["engine_waves"] > 0
         assert runs["gate"]["launches"]["expand_votes"] > 0
 
 
@@ -761,9 +919,11 @@ def test_scale_script_holds_ultralong_on_the_card(dev, tmp_path,
         assert r["peak_device_bytes"] > r["dirs_max_bytes"]
         assert sum(r["lane_classes"].values()) == r["launches"]["convex_fill"]
         assert r["dirs_cap_refused"] == len(r["refused_rows"])
+        assert r["native_waves"] == r["engine_waves"] > 0
     assert runs["gate"]["launches"]["expand_votes"] > 0
     rec, held = S.test8_lanes("cuda")
     assert held and rec["identical"] == rec["reads"] > 0
+    assert rec["native_waves"] == rec["engine_waves"] > 0
     assert sum(rec["lane_classes"].values()) == rec["launches"]["convex_fill"]
 
 
@@ -791,6 +951,7 @@ def test_options_script_holds_the_fuzzq_sets_on_the_card(dev, tmp_path,
         for r in runs.values():
             assert r["diff"] == 0 and r["file_identical"]
             assert r["identical"] == r["reads"] == 150
+            assert r["native_waves"] == r["engine_waves"] > 0
         if gate == "device":
             assert runs["other search"]["search"] == "host"
             assert runs["gate"]["launches"]["expand_votes"] > 0
