@@ -15,10 +15,16 @@ place (an upper reading). Then, for each fault and each of --fault-seeds,
 a window with the fault planted (upper readings):
 
   narrow<P>  the fill's band cut to P% of its width (each align problem's
-             corridor width, as the device engine receives it): a fill
-             that misses cells;
+             corridor width, as the device engine or, on one card, the
+             native wave receives it): a fill that misses cells;
   unmap<N>   the SAM writer writes every N-th pool read unmapped: an answer
              refused where it is produced.
+  nosupp     the SAM writer drops every supplementary record and every SA
+             tag: a split read reported as its primary record alone.
+
+Each line also gives the window's lane-bound retries (a counter of the
+program's) and the align rows that DIRS_CAP refused, read from each native
+wave's plan (pipeline/native_engine.py's observe_waves).
 
 --check-share replaces the mix's share of checked reads, so that a short
 window checks as many reads as a run does. Prints one JSON line a window
@@ -35,6 +41,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
 
 import argparse  # noqa: E402
+import ctypes  # noqa: E402
+
+import numpy as np  # noqa: E402
 
 from benchmark.harness.bench import Bench, cache_env, log  # noqa: E402
 from benchmark.harness.spec import Spec  # noqa: E402
@@ -58,28 +67,53 @@ def _factor(prefix: str) -> int:
     return int(f[len(prefix):]) if f.startswith(prefix) else 0
 
 
+def _narrowed(pk, n: int):
+    """A copy of align rows [P, 12] with each corridor width (column 9)
+    cut to n%."""
+    pk = pk.copy()
+    pk[:, 9] = (pk[:, 9] * n // 100).clip(min=1)
+    return pk
+
+
 def plant_faults():
-    """Wraps the program's align dispatch and SAM writer; each wrapper acts
-    only while ACTIVE names its fault."""
+    """Wraps the program's align dispatch (the Python wave's and the
+    native wave's launch) and SAM writer; each wrapper acts only while
+    ACTIVE names its fault."""
     from ngmlr_tpu_torch.ops import device_engine
     from ngmlr_tpu_torch.out import sam
+    from ngmlr_tpu_torch.pipeline import native_engine
     dispatch = device_engine.DeviceContext.align_dispatch_pk
+    launch = native_engine.NativeWave.launch
     write_read = sam.SamWriter.write_read
 
     def narrow_dispatch(self, pk_all, *a, **k):
         n = _factor("narrow")
         if n and len(pk_all):
-            pk_all = pk_all.copy()
-            pk_all[:, 9] = (pk_all[:, 9] * n // 100).clip(min=1)
+            pk_all = _narrowed(pk_all, n)
         return dispatch(self, pk_all, *a, **k)
+
+    def narrow_launch(self, apk_p, na: int, spk_p, ns: int):
+        n = _factor("narrow")
+        if n and na:
+            rows = np.ctypeslib.as_array(
+                ctypes.cast(apk_p, ctypes.POINTER(ctypes.c_int32)),
+                shape=(na, 12))
+            # the engine keeps its own rows; the copy lives until the
+            # wave's next launch, past its fetch
+            self.narrowed = _narrowed(rows, n)
+            apk_p = ctypes.c_void_p(self.narrowed.ctypes.data)
+        return launch(self, apk_p, na, spk_p, ns)
 
     def unmap_write(self, read, records, mapped):
         n = _factor("unmap")
         if n and read.name[:1] == b"r" and \
                 int(read.name[1:].split(b"_")[0]) % n == 0:
             mapped = False
+        if ACTIVE["fault"] == "nosupp":
+            records = [r for r in records if r.align.primary]
         return write_read(self, read, records, mapped)
     device_engine.DeviceContext.align_dispatch_pk = narrow_dispatch
+    native_engine.NativeWave.launch = narrow_launch
     sam.SamWriter.write_read = unmap_write
 
 
@@ -103,15 +137,21 @@ def main(argv=None) -> int:
     runs = [("none", s) for s in seeds_of(args.seeds)]
     runs += [(f, s) for f in filter(None, args.faults.split(","))
              for s in seeds_of(args.fault_seeds)]
+    from ngmlr_tpu_torch.pipeline import native_engine
     lines = []
     for fault, seed in runs:
         ACTIVE["fault"] = fault
-        r = bench.run(seed, args.seconds)
+        refused = []      # the align rows DIRS_CAP refused, a wave each
+        with native_engine.observe_waves(
+                lambda wave: refused.append(len(wave.launched()[1]))):
+            r = bench.run(seed, args.seconds)
         nums, ctrl = bench.judge(r, CONTROL if fault == "none" else None)
         line = {"seed": seed, "fault": fault, "program": nums,
                 "control": ctrl, "metrics": bench.metrics(r, False, 0.0),
                 "reads_in_window": int(len(r.bases)),
-                "checked": len(r.checked)}
+                "checked": len(r.checked),
+                "lane_bound_retries": r.delta("lane_bound_retries"),
+                "dirs_cap_refused_rows": sum(refused)}
         lines.append(line)
         log(json.dumps(line))
         print(json.dumps(line), flush=True)

@@ -123,6 +123,7 @@ class Bench:
             window.slices(w.t_open, w.t_close, sink.done, length_of))))
         log("window stats, s per Mbp: " + ", ".join(
             "%s %.4f" % kv for kv in per_mbp.items()))
+        log("window: %d lane-bound retries" % delta("lane_bound_retries"))
         cpu = {k: w.cpu_close[k] - w.cpu_open.get(k, 0.0)
                for k in w.cpu_close}
         feeder = "pid:%d" % feed.proc.pid
@@ -160,9 +161,8 @@ class Bench:
             rd = gen.read_at(self.mix, r.seed, self.genome, i, block=block)
             if len(rd.seq) != r.feeder.lengths[i]:
                 raise RuntimeError("read %s made again differs" % name)
-            reads.append((r.sink.lines[name], rd.seq,
-                          [(rd.pos, rd.pos + rd.length)], rd.reverse,
-                          rd.path))
+            reads.append((r.sink.lines[name], rd.seq, rd.parts, rd.reverse,
+                          rd.path, rd.cuts, rd.kind))
         t0 = time.perf_counter()
         nums, ctrl, seen = reference.judge(reads, self.genome, self.chroms,
                                            sc, control_dtype)

@@ -166,12 +166,12 @@ def main():
         genome = np.load(job["npy"], mmap_mode="r")
         mix, seed = job["mix"], job["seed"]
         warm = gen.records(mix, seed, genome, 0, job["n_warm"], warm=True)
-        n = job["n_pool"]
-        pool = Pool(n, gen.records(mix, seed, genome, 0, min(gen.CHUNK, n)))
-        jobs = [[mix, seed, job["npy"], a, min(gen.CHUNK, n - a), False]
-                for a in range(gen.CHUNK, n, gen.CHUNK)]
+        n, chunk = job["n_pool"], gen.chunk_reads(mix)
+        pool = Pool(n, gen.records(mix, seed, genome, 0, min(chunk, n)))
+        jobs = [[mix, seed, job["npy"], a, min(chunk, n - a), False]
+                for a in range(chunk, n, chunk)]
         maker = threading.Thread(target=pool.make, args=(
-            jobs, gen.CHUNK, job["workers"], gen.chunk_in_child), daemon=True)
+            jobs, chunk, job["workers"], gen.chunk_in_child), daemon=True)
         maker.start()
     out = sys.stdout.buffer
     pickle.dump({"ready": True}, out)

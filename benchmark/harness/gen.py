@@ -9,7 +9,9 @@ and its strand come from a generator of its own, seeded with the run's
 seed and the read's index, so that any read can be made again alone (the
 reference does so for the reads it checks).
 
-A read is one piece of the genome through generators.edit(). Mix keys:
+A read is one piece of the genome through generators.edit(); under
+`events` its source is the pieces of generators.sv_source() (a structural
+variant), joined and then edited as one. Mix keys:
   source           where the numbers come from
   length           the read's source length, before the edits:
                    {"dist": "lognormal", "mean", "sd", "min", "max"}, or
@@ -26,6 +28,13 @@ A read is one piece of the genome through generators.edit(). Mix keys:
   pool_max_reads   ... and at most this many reads
   check_share      the share of the pool whose records the reference
                    checks (drawn from the seed), and the longest read
+  events           optional: {"kinds": [kind, ...], "sizes": {kind: [lo,
+                   hi]}, "join_min"}: each stratum carries one kind, in
+                   turn over a fixed shuffle of the strata, so each kind
+                   holds K / len(kinds) of them (generators.sv_source's
+                   kinds: clean, del, ins, inv, dup, join, with its event
+                   sizes in bases, bounds inclusive, and a join's least
+                   distance between its halves)
 """
 
 import json
@@ -43,7 +52,7 @@ from . import generators as G
 
 K = 96               # strata a block
 DESIGN_SEED = 16     # the fixed shuffle that pairs lengths and accuracies
-CHUNK = 40 * K       # reads a child generator makes at a time
+CHUNK_BASES = 40 * K * 3000   # source bases a child generator makes at a time
 POOL, WARM, ORDER, WARM_ORDER, CHECK = 3, 2, 4, 5, 1   # seed streams
 
 
@@ -63,24 +72,32 @@ def _quantiles(d: dict, u: np.ndarray) -> np.ndarray:
 
 
 def design(mix: dict):
-    """The block every seed's pool repeats: K (source length, accuracy)."""
+    """The block every seed's pool repeats: K (source length, accuracy),
+    and under `events` (source length, accuracy, event kind)."""
     d = np.random.default_rng(DESIGN_SEED)
     L = _quantiles(mix["length"], (d.permutation(K) + 0.5) / K)
     acc = _quantiles(mix["accuracy"], (d.permutation(K) + 0.5) / K)
-    return [(int(round(x)), float(a)) for x, a in zip(L, acc)]
+    block = [(int(round(x)), float(a)) for x, a in zip(L, acc)]
+    if "events" not in mix:
+        return block
+    kinds = mix["events"]["kinds"]
+    return [s + (kinds[j % len(kinds)],)
+            for s, j in zip(block, d.permutation(K))]
 
 
 def mean_length(mix: dict) -> float:
-    return float(np.mean([L for L, _ in design(mix)]))
+    return float(np.mean([s[0] for s in design(mix)]))
 
 
 @dataclass
 class Read:
     seq: bytes
-    pos: int           # the source piece's first base in the genome
-    length: int        # the source piece's length
+    length: int        # the source's length (its pieces, inserted bases)
     reverse: bool
-    path: np.ndarray   # the edit path (generators.edit), in genome order
+    path: np.ndarray   # the edit path (generators.edit), in source order
+    parts: list        # the source pieces (start, end, reverse) in order
+    cuts: list         # each piece's first and end path column, or None
+    kind: str = None   # the event's kind (None without `events`)
 
 
 def _seed(seed: int) -> int:
@@ -99,17 +116,36 @@ def read_at(mix: dict, seed: int, genome: np.ndarray, i: int,
     None unless with_path)."""
     block = block or design(mix)
     s = _seed(seed)
-    L, acc = block[_order(s, WARM_ORDER if warm else ORDER, i // K)[i % K]]
+    L, acc, *event = block[_order(s, WARM_ORDER if warm else ORDER,
+                                  i // K)[i % K]]
     rng = np.random.default_rng([s, WARM if warm else POOL, i])
-    pos = int(rng.integers(0, len(genome) - L))
+    kind = event[0] if event else None
+    if kind is None:
+        pos = int(rng.integers(0, len(genome) - L))
+        src = np.asarray(genome[pos:pos + L])
+        parts, starts = [(pos, pos + L, False)], [0]
+    else:
+        ev = mix["events"]
+        kind, parts, bases, starts = G.sv_source(
+            rng, genome, kind, L, ev["sizes"], ev["join_min"])
+        src = np.frombuffer(bases, dtype=np.uint8)
     err = 1.0 - acc
     r = mix["edit_ratio"]
     tot = float(r["sub"] + r["ins"] + r["del"])
-    seq, path = G.edit(rng, np.asarray(genome[pos:pos + L]),
-                       err * r["ins"] / tot, err * r["del"] / tot,
+    seq, path = G.edit(rng, src, err * r["ins"] / tot, err * r["del"] / tot,
                        err * r["sub"] / tot, with_path)
     rc = bool(rng.random() < mix["reverse_share"])
-    return Read(G.revcomp(seq) if rc else seq, pos, L, rc, path)
+    cuts = None
+    if path is not None:
+        # source base b's own column (its insertions come just before it)
+        own = np.flatnonzero(path != G.INS)
+
+        def col(b):
+            return int(own[b - 1]) + 1 if b else 0
+        cuts = [(col(b0), col(b0 + e - a))
+                for b0, (a, e, _) in zip(starts, parts)]
+    return Read(G.revcomp(seq) if rc else seq, L, rc, path, parts, cuts,
+                kind)
 
 
 def fasta(name: bytes, seq: bytes) -> bytes:
@@ -130,7 +166,7 @@ def records(mix: dict, seed: int, genome: np.ndarray, first: int, n: int,
 def longest(mix: dict, seed: int, blocks: int):
     """The pool indices of the longest stratum's read in each of the first
     `blocks` blocks."""
-    j = int(np.argmax([L for L, _ in design(mix)]))
+    j = int(np.argmax([s[0] for s in design(mix)]))
     return [b * K + int(np.flatnonzero(_order(_seed(seed), ORDER, b) == j)[0])
             for b in range(blocks)]
 
@@ -153,6 +189,13 @@ def chunk_in_child(job):
         raise RuntimeError("read generator failed: %s"
                            % p.stderr.decode(errors="replace")[-2000:])
     return pickle.loads(p.stdout)
+
+
+def chunk_reads(mix: dict) -> int:
+    """The reads a child generator makes at a time: whole blocks of about
+    CHUNK_BASES source bases (the feeder is ready once the warm-up reads
+    and the first chunk are made)."""
+    return K * max(1, round(CHUNK_BASES / (K * mean_length(mix))))
 
 
 def pool_size(mix: dict, seconds: float) -> int:

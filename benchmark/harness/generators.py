@@ -61,3 +61,66 @@ def edit(rng, seq, ins: float, dele: float, sub: float, with_path=True):
     path[last] = col.astype(np.uint8)
     path[last[is_ins] - 1] = INS
     return out.tobytes(), path
+
+
+def sv_source(rng, genome, kind: str, L: int, sizes: dict, join_min: int):
+    """One read's source before the noise: L bases of genome (uint8 ASCII
+    ACGT) carrying kind's event, its size drawn from sizes[kind] (bounds
+    inclusive; dup's top is also held to (L - 2000) // 2); a join's two
+    halves lie at least join_min apart.
+
+    Copy of scripts/torch_scale_vs_jax.py:sv_read, drawing in its order.
+    Returns (kind, the source pieces (start, end, reverse) in read order,
+    the bases, each piece's first base in them). An insertion's random
+    bases lie between its two pieces and are part of neither."""
+    glen = len(genome)
+
+    def piece(a, b):
+        return genome[a:b].tobytes()
+    lo, hi = sizes.get(kind, (0, 0))
+    if kind == "clean":
+        p = int(rng.integers(0, glen - L))
+        parts = [(p, p + L, False)]
+        seq = piece(p, p + L)
+    elif kind == "del":
+        D = int(rng.integers(lo, hi + 1))
+        a = L // 2
+        p = int(rng.integers(0, glen - L - D))
+        parts = [(p, p + a, False), (p + a + D, p + L + D, False)]
+        seq = piece(p, p + a) + piece(p + a + D, p + L + D)
+    elif kind == "ins":
+        n_ins = int(rng.integers(lo, hi + 1))
+        flank = L - n_ins
+        a = flank // 2
+        p = int(rng.integers(0, glen - flank))
+        parts = [(p, p + a, False), (p + a, p + flank, False)]
+        seq = (piece(p, p + a) + make_genome(rng, n_ins).tobytes()
+               + piece(p + a, p + flank))
+        return kind, parts, seq, [0, a + n_ins]
+    elif kind == "inv":
+        V = int(rng.integers(lo, hi + 1))
+        a = (L - V) // 2
+        p = int(rng.integers(0, glen - L))
+        parts = [(p, p + a, False), (p + a, p + a + V, True),
+                 (p + a + V, p + L, False)]
+        seq = (piece(p, p + a) + revcomp(piece(p + a, p + a + V))
+               + piece(p + a + V, p + L))
+    elif kind == "dup":
+        U = int(rng.integers(lo, min(hi, (L - 2_000) // 2) + 1))
+        a = (L - 2 * U) // 2
+        span = L - U
+        p = int(rng.integers(0, glen - span))
+        parts = [(p, p + a + U, False), (p + a, p + span, False)]
+        seq = piece(p, p + a + U) + piece(p + a, p + span)
+    elif kind == "join":
+        a = L // 2
+        p1 = int(rng.integers(0, glen - a))
+        p2 = int(rng.integers(0, glen - (L - a)))
+        while abs(p2 - p1) < join_min:
+            p2 = int(rng.integers(0, glen - (L - a)))
+        parts = [(p1, p1 + a, False), (p2, p2 + L - a, False)]
+        seq = piece(p1, p1 + a) + piece(p2, p2 + L - a)
+    else:
+        raise ValueError("unknown event kind %r" % kind)
+    starts = np.cumsum([0] + [b - a for a, b, _ in parts[:-1]]).tolist()
+    return kind, parts, seq, starts

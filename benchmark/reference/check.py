@@ -2,9 +2,12 @@
 from the reads as they were fed, where each came from, and the genome.
 
 It imports nothing of the program and takes nothing the program made but
-the records it judges. Per read it checks:
+the records it judges. A read came from one or more pieces of the genome
+(start, end, reverse), in read order: one for a read without a structural
+variant; an inversion's middle piece is reversed; an insertion's random
+bases lie between two pieces and belong to none. Per read it checks:
   * placement: a mapped read's primary record lies on a piece the read
-    came from (on its strand, for a read of one piece);
+    came from, on that piece's strand;
   * the record itself: SEQ is the read (reverse-complemented under flag
     0x10), the CIGAR spends the read's whole length with soft clips at
     the ends only, QS and QE are those clips, the alignment lies inside the
@@ -19,10 +22,14 @@ the records it judges. Per read it checks:
     in path order.
 
 Against the read's true edit path (where the generator's path is given)
-it also measures how far AS falls short of that path's score, and how
-much of the read no record aligns: a fill that misses cells, a band too
-narrow or a walk that stops early shows there, where the path's own
-consistency cannot show it.
+it also measures how far AS falls short of that path's score (for a read
+of several pieces, the sum of each piece's own path's score, the path cut
+at the pieces' edges), and how much of the read's genome bases no record
+aligns: a fill that misses cells, a band too narrow or a walk that stops
+early shows there, where the path's own consistency cannot show it. For a
+read of several pieces it also asks which pieces its records cover (a
+record matches at least half of a piece's read bases inside that piece, on
+its strand) and whether a record lies off every piece.
 
 `judge` returns the numbers compared with their limits. `control_dtype`
 recomputes the score in a lower precision and puts it in the program's
@@ -42,6 +49,11 @@ _OPS = b"MIDNSHP=X"
 _QC = np.array([1, 1, 0, 0, 1, 0, 0, 1, 1], dtype=bool)
 _RCON = np.array([1, 0, 1, 1, 0, 0, 0, 1, 1], dtype=bool)
 M, I, D, S = 0, 1, 2, 4
+# the generator's path codes: a deletion emits no read base
+GEN_DEL = 3
+# the kinds of read whose records have to cover two pieces or more (a
+# deletion or an insertion may be aligned in one record)
+SPLIT_KINDS = ("inv", "dup", "join")
 
 
 def revcomp(s: bytes) -> bytes:
@@ -237,6 +249,32 @@ def true_score(codes: np.ndarray, sc: Scoring) -> float:
     return path_score(*score_terms(edit_path(codes), sc))
 
 
+def pieces_score(codes: np.ndarray, parts, cuts, sc: Scoring) -> float:
+    """The sum of each piece's true-path score: the path cut at the
+    pieces' first and end columns, a reversed piece's part in its genome
+    order."""
+    if len(parts) == 1:
+        return true_score(codes, sc)
+    return sum(true_score(codes[c0:c1][::-1] if p[2] else codes[c0:c1], sc)
+               for p, (c0, c1) in zip(parts, cuts))
+
+
+def piece_bases(codes: np.ndarray, cuts, n: int, reverse: bool):
+    """(Whether each of the read's n bases came from the genome, each
+    piece's read bases [q0, q1) in the read as fed)."""
+    col = np.zeros(len(codes), dtype=bool)
+    for c0, c1 in cuts:
+        col[c0:c1] = True
+    emits = codes != GEN_DEL
+    genomic = col[emits]
+    before = np.concatenate([[0], np.cumsum(emits)])
+    spans = [(int(before[c0]), int(before[c1])) for c0, c1 in cuts]
+    if reverse:
+        genomic = genomic[::-1]
+        spans = [(n - b, n - a) for a, b in spans]
+    return genomic, spans
+
+
 @dataclass
 class ReadVerdict:
     faults: List[str] = field(default_factory=list)
@@ -247,13 +285,28 @@ class ReadVerdict:
     shortfall: float = 0.0     # % of the true path's score that AS misses
     best: float = 0.0          # the true path's score
     as_sum: int = 0            # AS summed over the read's records
-    unaligned: int = 0         # read bases that no record aligns
+    unaligned: int = 0         # genome bases of the read no record aligns
+    genomic: int = 0           # the read's bases that came from the genome
+    pieces_covered: int = 0    # pieces the records cover (several pieces)
+    off_source: bool = False   # a mapped record overlaps no piece
+
+
 def check_read(lines: List[bytes], read: bytes, parts, reverse: bool,
                genome: np.ndarray, chroms: Dict[bytes, tuple],
-               sc: Scoring, control_dtype=None, path=None) -> ReadVerdict:
-    """chroms: name -> (first index in genome, length); path: the read's
-    true edit path (edit_path's codes), or None."""
+               sc: Scoring, control_dtype=None, path=None,
+               cuts=None) -> ReadVerdict:
+    """chroms: name -> (first index in genome, length); parts: the source
+    pieces (start, end, reverse) in read order; path: the read's true
+    edit path (edit_path's codes), or None; cuts: each piece's first and
+    end column in path (needed for several pieces)."""
     v = ReadVerdict()
+    several = len(parts) > 1 and path is not None
+    if several:
+        genomic, spans = piece_bases(path, cuts, len(read), reverse)
+        aligned_in = np.zeros(len(parts), dtype=np.int64)
+    else:
+        genomic = np.ones(len(read), dtype=bool)
+    v.genomic = int(genomic.sum())
     as_sum, covered = 0, np.zeros(len(read), dtype=bool)
     recs = [Record.parse(x) for x in lines]
     mapped = [r for r in recs if not r.flag & 0x4]
@@ -316,44 +369,71 @@ def check_read(lines: List[bytes], read: bytes, parts, reverse: bool,
         if r.reverse:
             a, b = len(read) - b, len(read) - a
         covered[a:b] = True
+        if several:
+            # the read bases this record matches, in the read as fed, and
+            # the genome bases they meet
+            m = (p.code == M) & p.eq
+            q = p.qi[m] if not r.reverse else len(read) - 1 - p.qi[m]
+            for k, ((ga, gb, prev), (qa, qb)) in enumerate(zip(parts,
+                                                               spans)):
+                if r.reverse == (reverse != prev):
+                    aligned_in[k] += int(np.sum(
+                        (q >= qa) & (q < qb) & (p.ri[m] >= ga)
+                        & (p.ri[m] < gb)))
         if control_dtype:
             low = int(path_score(terms, extends, control_dtype))
             v.control_gap = max(v.control_gap, abs(low - ref))
-    v.unaligned = int(len(read) - covered.sum())
+    v.unaligned = int(np.sum(genomic & ~covered))
     if path is not None:
-        v.best, v.as_sum = true_score(path, sc), as_sum
+        v.best, v.as_sum = pieces_score(path, parts, cuts, sc), as_sum
         v.shortfall = 100.0 * (v.best - as_sum) / max(abs(v.best), 1.0)
-    for r in prim:
+    if several:
+        v.pieces_covered = int(sum(
+            2 * n >= qb - qa for n, (qa, qb) in zip(aligned_in, spans)
+            if qb > qa))
+
+    def span(r):
         g0, _ = chroms.get(r.rname, (0, 0))
         lo = g0 + r.pos
-        hi = lo + sum(int(n) for n, o in _CIG.findall(r.cigar)
-                      if o in b"MDN=X")
-        strand_ok = len(parts) > 1 or r.reverse == reverse
-        v.placed = strand_ok and any(lo < b and a < hi for a, b in parts)
+        return lo, lo + sum(int(n) for n, o in _CIG.findall(r.cigar)
+                            if o in b"MDN=X")
+    for r in prim:
+        lo, hi = span(r)
+        v.placed = any(lo < b and a < hi and r.reverse == (reverse != prev)
+                       for a, b, prev in parts)
+    if len(parts) > 1:
+        v.off_source = any(not any(lo < b and a < hi for a, b, _ in parts)
+                           for lo, hi in map(span, mapped))
     return v
 
 
 def judge(reads, genome, chroms, sc: Scoring, control_dtype=None):
-    """reads: (lines, read, parts, reverse, true edit path or None) of each
-    read checked. Returns (numbers, control numbers or None, notes: the
-    first faults, and the read behind each widest reading).
+    """reads: (lines, read, parts, reverse, true edit path or None, cuts,
+    kind) of each read checked (cuts, where it has several pieces, and its
+    event's kind, or None). Returns (numbers, control numbers or None,
+    notes: the first faults, the read behind each widest reading, and how
+    many mapped reads of a kind in SPLIT_KINDS were judged).
 
     Numbers: record_faults and misplaced (reads), score_gap (the widest
     gap between AS and its path's score), unaligned_share (% of the mapped
-    reads' bases that no record aligns), and against the true paths:
-    score_deficit (% of their scores' sum that the mapped reads' AS,
-    summed over each read's records, falls short by, read by read),
+    reads' genome bases that no record aligns), and against the true
+    paths: score_deficit (% of their scores' sum that the mapped reads'
+    AS, summed over each read's records, falls short by, read by read),
     short_reads (% of the mapped reads whose AS falls short), and
     score_shortfall (the most, in %, by which one read's does), which no
-    limit reads."""
+    limit reads. Of the reads of several pieces: unsplit_share (% of the
+    mapped reads of a kind in SPLIT_KINDS whose records cover fewer than
+    two pieces) and records_off_source (reads with a mapped record that
+    overlaps none of their pieces)."""
     faults, misplaced, gap, cgap = 0, 0, 0.0, 0.0
     short, unal, bases = [], 0, 0
     best_sum, deficit = 0.0, 0.0
+    split_kind, unsplit, off_source = 0, 0, 0
     seen, worst = [], {}
-    for lines, read, parts, reverse, path in reads:
+    for lines, read, parts, reverse, path, cuts, kind in reads:
         name = lines[0].split(b"\t", 1)[0].decode()
         v = check_read(lines, read, parts, reverse, genome, chroms, sc,
-                       control_dtype, path)
+                       control_dtype, path, cuts)
         if v.faults:
             faults += 1
             if len(seen) < 5:
@@ -363,8 +443,12 @@ def judge(reads, genome, chroms, sc: Scoring, control_dtype=None):
         cgap = max(cgap, v.control_gap)
         if not v.mapped:
             continue
+        off_source += v.off_source
+        if kind in SPLIT_KINDS:
+            split_kind += 1
+            unsplit += v.pieces_covered < 2
         unal += v.unaligned
-        bases += len(read)
+        bases += v.genomic
         if path is not None:
             short.append(v.shortfall)
             best_sum += v.best
@@ -372,7 +456,8 @@ def judge(reads, genome, chroms, sc: Scoring, control_dtype=None):
         for key, x in (("score_gap", v.score_gap),
                        ("score_shortfall", v.shortfall if path is not None
                         else None),
-                       ("unaligned", 100.0 * v.unaligned / len(read))):
+                       ("unaligned", 100.0 * v.unaligned
+                        / max(v.genomic, 1))):
             if x is not None and (key not in worst or x > worst[key][0]):
                 worst[key] = (x, name)
     nums = {"record_faults": faults, "misplaced": misplaced,
@@ -381,7 +466,12 @@ def judge(reads, genome, chroms, sc: Scoring, control_dtype=None):
             "short_reads": 100.0 * np.mean(np.array(short) > 0)
             if short else 0.0,
             "score_shortfall": max(short) if short else 0.0,
-            "unaligned_share": 100.0 * unal / max(bases, 1)}
+            "unaligned_share": 100.0 * unal / max(bases, 1),
+            "unsplit_share": 100.0 * unsplit / max(split_kind, 1),
+            "records_off_source": off_source}
     ctrl = dict(nums, score_gap=cgap) if control_dtype else None
     seen += ["widest %s %.4f: %s" % (k, x, n) for k, (x, n) in worst.items()]
+    if split_kind:
+        seen.append("%d mapped reads of a kind in SPLIT_KINDS, %d unsplit"
+                    % (split_kind, unsplit))
     return nums, ctrl, seen

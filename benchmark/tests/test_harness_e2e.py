@@ -6,6 +6,7 @@ real cell through benchmark/run.py."""
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -47,7 +48,8 @@ def write_record(self, read, records, idx):
 sam.SamWriter.write_read, sam.SamWriter._write_record = write_read, write_record
 # the fill's band cut to half its width, as benchmark/calibrate.py plants it
 C.plant_faults()
-C.ACTIVE["fault"] = "narrow50" if fault == "narrow" else "none"
+C.ACTIVE["fault"] = {"narrow": "narrow50", "nosupp": "nosupp"}.get(fault,
+                                                                "none")
 spec = Spec(%(dest)r, %(dest)r + "/benchmark")
 b = Bench(spec, %(cell)r, device="cpu")
 rep = R.run(b, %(seed)d, %(seconds)f, False)
@@ -56,9 +58,8 @@ print(json.dumps(rep))
 '''
 
 
-def run_tiny(tmp_path, fault=None, seed=2**31 + 5, seconds=3.0,
-             cell="chr1_pacbio.clr"):
-    dest = tiny_copy(str(tmp_path), cell)
+def run_tiny(tmp_path, fault=None, seed=2**31 + 5, seconds=3.0, sv=False):
+    dest = tiny_copy(str(tmp_path), sv=sv)
     name = "tiny." + json.load(open(os.path.join(
         dest, "BENCHMARK.json")))["workloads"][0]["traffic"]
     code = DRIVER % dict(root=ROOT, fault=fault, dest=dest, cell=name,
@@ -126,3 +127,37 @@ def test_cell_on_the_card(tmp_path):
     assert p.returncode == 0, p.stderr[-3000:]
     rep = json.loads(p.stdout.strip().splitlines()[-1])
     assert rep["correct"] and rep["device"]["platform"] == "gpu"
+
+
+def _split_reads_judged(err: str) -> int:
+    """The mapped reads of a kind that has to be split that the reference
+    judged, from its notes."""
+    m = re.findall(r"reference: (\d+) mapped reads of a kind in SPLIT_KINDS",
+                   err)
+    return int(m[-1]) if m else 0
+
+
+def test_tiny_sv_cell_checks_split_reads(tmp_path):
+    """SV reads (3-4 kb here, their events cut to fit) through a whole run
+    on the CPU: sound records, each split read covering its pieces, none
+    off its source. AS against the pieces' true paths (short_reads,
+    score_deficit) is not held here: at these event sizes the breakpoints
+    cost a larger share of a read than at svlong's."""
+    rep, err = run_tiny(tmp_path, seconds=3.0, sv=True)
+    assert rep["failed"] == 0 and rep["forbidden"] == []
+    assert rep["attempted"] > 0 and _split_reads_judged(err) > 0, err[-2000:]
+    checks = rep["checks"]
+    for k in ("record_faults", "misplaced", "score_gap", "missing",
+              "records_off_source", "unsplit_share", "unmapped_share",
+              "unaligned_share"):
+        assert checks[k][0] <= checks[k][1], (k, checks[k], err[-2000:])
+
+
+def test_sv_reads_without_supplementary_records_are_not_correct(tmp_path):
+    """The SAM writer dropping every supplementary record and SA tag (as
+    benchmark/calibrate.py plants nosupp) fails unsplit_share."""
+    rep, err = run_tiny(tmp_path, "nosupp", seconds=3.0, sv=True)
+    assert _split_reads_judged(err) > 0, err[-2000:]
+    assert not rep["correct"]
+    value, limit = rep["checks"]["unsplit_share"]
+    assert value > limit

@@ -122,7 +122,8 @@ def test_reads_are_deterministic_from_the_seed():
     for i in (0, 5, 11):
         rd = gen.read_at(m, 2**31 + 77, genome, i)
         assert a[i] == b">r%d\n" % i + rd.seq + b"\n"
-        src = genome[rd.pos:rd.pos + rd.length].tobytes()
+        pos = rd.parts[0][0]
+        src = genome[pos:pos + rd.length].tobytes()
         fwd = G.revcomp(rd.seq) if rd.reverse else rd.seq
         assert len(fwd) == int(np.sum(rd.path != G.DEL))
         assert abs(len(fwd) - len(src)) < 0.3 * len(src)
@@ -179,3 +180,160 @@ def test_other_length_distributions_have_their_quantiles(dist):
     u = (np.arange(gen.K) + 0.5) / gen.K
     want = 1000 + u * 19000 if dist == "uniform" else 1000 * 20 ** u
     assert np.allclose(L, want, atol=0.5)
+
+
+def _scale_script():
+    spec = importlib.util.spec_from_file_location(
+        "torch_scale_vs_jax", os.path.join(ROOT, "scripts",
+                                           "torch_scale_vs_jax.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _sv_mix():
+    from .helpers import sv_mix
+    return sv_mix()
+
+
+@pytest.mark.parametrize("kind", ["clean", "del", "ins", "inv", "dup",
+                                  "join"])
+def test_sv_source_draws_as_its_original(kind):
+    """sv_source is scripts/torch_scale_vs_jax.py:sv_read: the same pieces
+    and bases from the same generator, and as many draws."""
+    sv = _scale_script()
+    genome = G.make_genome(np.random.default_rng(11), 3_000_000)
+    for seed in (1, 2**31 + 5):
+        a, b = np.random.default_rng(seed), np.random.default_rng(seed)
+        k, parts, seq, starts = G.sv_source(a, genome, kind, 23_457,
+                                            sv.SV_SIZES, sv.JOIN_MIN)
+        k0, parts0, seq0 = sv.sv_read(b, genome, kind, 23_457, sv.SV_SIZES)
+        assert k == kind and k0.startswith(kind)
+        assert [(x, y) for x, y, _ in parts] == parts0 and seq == seq0
+        assert [r for _, _, r in parts] == [kind == "inv" and j == 1
+                                            for j in range(len(parts))]
+        assert a.random() == b.random()
+    ev = _sv_mix()["events"]
+    assert {k: tuple(v) for k, v in ev["sizes"].items()} == sv.SV_SIZES
+    assert ev["join_min"] == sv.JOIN_MIN and tuple(ev["kinds"]) == \
+        sv.SV_KINDS
+    L = _sv_mix()["length"]
+    assert (L["lo"], L["hi"]) == sv.SV_LEN
+
+
+def test_sv_reads_are_made_again_alike():
+    """An SV read made again alone is the pool's read."""
+    m = _sv_mix()
+    genome = G.make_genome(np.random.default_rng(2), 3_000_000)
+    a = gen.records(m, 2**31 + 77, genome, 0, 12)
+    assert a == gen.records(m, 2**31 + 77, genome, 0, 12)
+    for i in (0, 5, 11):
+        rd = gen.read_at(m, 2**31 + 77, genome, i)
+        assert a[i] == b">r%d\n" % i + rd.seq + b"\n"
+
+
+def _walk(rd, genome):
+    """Every path column's read base and source base (source order), and
+    the columns each piece's cuts hold, checked against the genome."""
+    S = np.frombuffer(G.revcomp(rd.seq) if rd.reverse else rd.seq,
+                      dtype=np.uint8)
+    comp = np.frombuffer(b"TGCA", dtype=np.uint8)
+    qi = np.cumsum(rd.path != G.DEL) - 1
+    si = np.cumsum(rd.path != G.INS) - 1
+    assert qi[-1] + 1 == len(S) and si[-1] + 1 == rd.length
+    for (a, b, rev), (c0, c1) in zip(rd.parts, rd.cuts):
+        cols = np.arange(c0, c1)
+        src = si[cols] - int(np.sum(rd.path[:c0] != G.INS))
+        assert int(np.sum(rd.path[cols] != G.INS)) == b - a
+        m = np.isin(rd.path[cols], (G.MATCH, G.MISMATCH))
+        g = np.asarray(genome[a:b])
+        if rev:
+            g = comp[np.searchsorted(np.frombuffer(b"ACGT", np.uint8),
+                                     g[::-1])]
+        same = S[qi[cols[m]]] == g[src[m]]
+        assert np.array_equal(same, rd.path[cols[m]] == G.MATCH)
+
+
+def test_sv_kinds_have_their_pieces():
+    """Each block holds 16 strata of each kind; each read's pieces lie and
+    face where sv_source puts them, its path cut at their edges spells
+    them, and an insertion's random bases lie between its pieces."""
+    m = _sv_mix()
+    block = gen.design(m)
+    kinds = [s[2] for s in block]
+    assert {k: kinds.count(k) for k in set(kinds)} == {
+        k: 16 for k in m["events"]["kinds"]}
+    assert [s[:2] for s in block] == [s[:2] for s in gen.design(
+        {k: v for k, v in m.items() if k != "events"})]
+    sizes = m["events"]["sizes"]
+    genome = G.make_genome(np.random.default_rng(3), 3_000_000)
+    seen = set()
+    for i in range(gen.K):
+        rd = gen.read_at(m, 2**31 + 9, genome, i)
+        seen.add(rd.kind)
+        p = rd.parts
+        n = [b - a for a, b, _ in p]
+        assert [r for _, _, r in p] == [rd.kind == "inv" and j == 1
+                                        for j in range(len(p))]
+        assert len(p) == {"clean": 1, "inv": 3}.get(rd.kind, 2)
+        inserted = rd.length - sum(n)
+        assert (inserted > 0) == (rd.kind == "ins")
+        if rd.kind == "del":
+            assert sizes["del"][0] <= p[1][0] - p[0][1] <= sizes["del"][1]
+        elif rd.kind == "ins":
+            assert p[0][1] == p[1][0]
+            assert sizes["ins"][0] <= inserted <= sizes["ins"][1]
+            gap = rd.cuts[1][0] - rd.cuts[0][1]
+            assert np.sum(rd.path[rd.cuts[0][1]:rd.cuts[1][0]] != G.INS) \
+                == inserted and gap >= inserted
+        elif rd.kind == "inv":
+            assert p[0][1] == p[1][0] and p[1][1] == p[2][0]
+            assert sizes["inv"][0] <= n[1] <= sizes["inv"][1]
+        elif rd.kind == "dup":
+            U = p[0][1] - p[1][0]
+            assert sizes["dup"][0] <= U <= min(sizes["dup"][1],
+                                               (rd.length - 2000) // 2)
+            assert p[1][0] > p[0][0] and p[1][1] > p[0][1]
+        elif rd.kind == "join":
+            assert abs(p[1][0] - p[0][0]) >= m["events"]["join_min"]
+        if rd.kind != "ins":
+            assert [c0 for c0, _ in rd.cuts[1:]] == [
+                c1 for _, c1 in rd.cuts[:-1]]
+        assert rd.cuts[0][0] == 0 and rd.cuts[-1][1] == len(rd.path)
+        _walk(rd, genome)
+    assert seen == set(m["events"]["kinds"])
+
+
+# sha256 of the clr pool's first 192 reads (index, position, source
+# length, strand, sequence, edit path) at two seeds on one genome, as the
+# generator made them before it learned of structural variants
+CLR_DIGESTS = {
+    2**31 + 77:
+        "0626fd7a6dc5093758c46af589f2d627749102394181ddcb83325f4ff7bb7e26",
+    3319000011:
+        "6b8ca48de2c1fa1b62802991750f48bde939a475c929717cde75d8682ed9cad9",
+}
+
+
+@pytest.mark.parametrize("seed", sorted(CLR_DIGESTS))
+def test_clr_pool_is_unchanged(seed):
+    import hashlib
+    m = _mix()
+    genome = G.make_genome(np.random.default_rng(2), 3_000_000)
+    h = hashlib.sha256()
+    for i in range(192):
+        rd = gen.read_at(m, seed, genome, i)
+        pos = rd.parts[0][0]
+        assert rd.parts == [(pos, pos + rd.length, False)]
+        assert rd.cuts == [(0, len(rd.path))] and rd.kind is None
+        h.update(b"%d %d %d %d\n" % (i, pos, rd.length, rd.reverse))
+        h.update(rd.seq + b"\n")
+        h.update(rd.path.tobytes() + b"\n")
+    assert h.hexdigest() == CLR_DIGESTS[seed]
+
+
+def test_chunks_hold_whole_blocks_of_like_bases():
+    """A generator's chunk is whole blocks of about as many bases in every
+    mix: 40 blocks of the clr mix's 3 kb reads, 5 of the SV mix's 25 kb."""
+    assert gen.chunk_reads(_mix()) == 40 * gen.K
+    assert gen.chunk_reads(_sv_mix()) == 5 * gen.K
