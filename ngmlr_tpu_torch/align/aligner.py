@@ -172,10 +172,12 @@ def _dump6_path(dbg6, problem):
 def align_banded(ref_win: RefWin, qry_view: SeqView, corridor: Corridor,
                  external_qstart: int, external_qend: int,
                  params=DEFAULT_PARAMS, dbg6=None,
-                 max_matrix_mb=None) -> Optional[Align]:
+                 max_matrix_mb=None, sv: bool = False) -> Optional[Align]:
     """One SingleAlign call: device fill + device backtrack + host CIGAR
     conversion. Returns None on backtrack failure (out-of-corridor path /
     no alignment); the caller checks final cigar length == full read length.
+    A realign's row (sv) counts in the split path's counters as it is
+    posted (native/engine.cpp align_banded alike).
     """
     if qry_view.length == 0 or ref_win.W == 0:
         return None
@@ -205,6 +207,11 @@ def align_banded(ref_win: RefWin, qry_view: SeqView, corridor: Corridor,
     problem = AlignProblem(ref_win.desc, qry_view.desc(), corridor.mode,
                            corridor.cf, corridor.ci, corridor.width)
     from ..pipeline import batcher as _batcher
+    if sv:
+        # the row's useful fill cells, as the wave planner counts them
+        _batcher.add_stats([("sv_align_rows", 1), (
+            "cells_sv_useful",
+            qry_view.length * min(corridor.width, problem.ref.W))])
     wb = _batcher.current()
     if wb is not None:
         wb.align(problem, params)
@@ -294,7 +301,8 @@ def compute_alignment(interval, corridor: int, qry_view: SeqView,
 
         align = align_banded(ref_win, qry_view, c,
                              external_qstart, external_qend, cfg.params,
-                             dbg6=dbg6, max_matrix_mb=cfg.max_matrix_size_mb)
+                             dbg6=dbg6, max_matrix_mb=cfg.max_matrix_size_mb,
+                             sv=realign)
         if align is not None and align._final_cigar_length == full_read_length:
             return align
         mult += 1

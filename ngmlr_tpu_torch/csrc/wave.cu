@@ -69,7 +69,7 @@ enum Count {
   ALIGN_WAVES, ALIGN_LAUNCHES, ALIGN_PROBLEMS, CELLS_ALIGN,
   CELLS_ALIGN_USEFUL, ALIGNMENT_OK, ALIGNMENT_ALL, CORRIDOR_SUM,
   LANE_BOUND_RETRIES, SCORE_WAVES, SCORE_LAUNCHES, SCORE_PROBLEMS,
-  CELLS_SCORE, CELLS_SCORE_USEFUL, NATIVE_WAVES,
+  CELLS_SCORE, CELLS_SCORE_USEFUL, ALIGN_ROWS_REFUSED, NATIVE_WAVES,
   LAUNCHED_CORRIDOR, LAUNCHED_FILL, LAUNCHED_BACKTRACK, LAUNCHED_SCORE
 };
 enum Sec { ALIGN_S, ALIGN_FETCH_S, SCORE_S };
@@ -291,6 +291,7 @@ void count_dispatch(const Pass& p, int64_t* n) {
   n[ALIGN_PROBLEMS] += p.na;
   n[CELLS_ALIGN] += p.ap.cells;
   n[CELLS_ALIGN_USEFUL] += p.ap.cells_useful;
+  n[ALIGN_ROWS_REFUSED] += (int64_t)p.ap.failed.size();
   n[SCORE_WAVES] += (int64_t)p.sp.buckets.size();
   n[SCORE_LAUNCHES] += (int64_t)p.sp.buckets.size();
   n[SCORE_PROBLEMS] += p.ns;
@@ -447,6 +448,7 @@ extern "C" int ngt_wave_fetch(void* h, int64_t* cfg, void** out) {
     n[ALIGN_PROBLEMS] += R;
     n[CELLS_ALIGN] += r.ap.cells;
     n[CELLS_ALIGN_USEFUL] += r.ap.cells_useful;
+    n[ALIGN_ROWS_REFUSED] += (int64_t)r.ap.failed.size();
     // the retry's own finalize counts its rows, and the wave's counts them
     // again (DeviceContext.align_finalize_pk's recursion)
     int64_t corr2 = 0;

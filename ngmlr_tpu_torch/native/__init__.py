@@ -187,6 +187,9 @@ def get_engine_lib():
             lib.engine_destroy.argtypes = [ctypes.c_void_p]
             lib.engine_cpu_seconds.restype = ctypes.c_double
             lib.engine_cpu_seconds.argtypes = [ctypes.c_void_p]
+            lib.engine_take_split_counts.restype = None
+            lib.engine_take_split_counts.argtypes = [ctypes.c_void_p,
+                                                     ctypes.c_void_p]
             lib.engine_start_batch.restype = None
             lib.engine_start_batch.argtypes = [
                 ctypes.c_void_p, ctypes.c_int32,

@@ -791,6 +791,17 @@ struct Engine {
   std::vector<int32_t> pk_align;   // [n][12] rows, layout of align_dispatch
   std::vector<int32_t> pk_score;   // [n][7] rows, layout of score_wave_np
 
+  // the split path's counters (SPLIT_KEYS in pipeline/native_engine.py, same
+  // order), added by the workers' fibers and taken once a batch
+  // (engine_take_split_counts)
+  enum { SV_PROBES, SV_REALIGN_TRIES, SV_ALIGN_ROWS, CELLS_SV_USEFUL,
+         N_SPLIT };
+  std::array<std::atomic<int64_t>, N_SPLIT> split{};
+
+  void count(int k, int64_t v) {
+    split[k].fetch_add(v, std::memory_order_relaxed);
+  }
+
   ~Engine() {
     {
       std::unique_lock<std::mutex> lk(mu);
@@ -1123,14 +1134,21 @@ static void qry_bytes(const ReadCtx& rd, const SeqView& v, std::string* out) {
 
 // align_banded (aligner.py:172-229): one SingleAlign — device fill +
 // backtrack + native CIGAR conversion. Returns false on failure.
+// A realign's row (sv) counts in the split path's counters as it is posted.
 static bool align_banded(Engine& e, const ReadCtx& rd, const RefWin& rw,
                          const SeqView& qv, const Corridor& c,
                          int64_t external_qstart, int64_t external_qend,
-                         AlignRes* out) {
+                         AlignRes* out, bool sv) {
   if (qv.length == 0 || rw.W() == 0) return false;
   // AlignmentMatrixFast::prepare refusal (aligner.py:183-188)
   if ((qv.length * (int64_t)c.width) / 1000000 >= e.cfg.max_matrix_size_mb)
     return false;
+  if (sv) {
+    e.count(Engine::SV_ALIGN_ROWS, 1);
+    // the row's useful fill cells, as the wave planner counts them
+    const int64_t W = rw.desc.W & ngt_plan::W_MASK;
+    e.count(Engine::CELLS_SV_USEFUL, qv.length * std::min<int64_t>(c.width, W));
+  }
   AlignReq req;
   req.ref = rw.desc;
   req.qstart = (int32_t)(rd.buf_offset + qv.start);
@@ -1212,7 +1230,8 @@ static bool compute_alignment(Engine& e, const ReadCtx& rd,
       c = corridor_endpoints(corridor * mult, rw.W(), qry_len, realign);
     }
     AlignRes a;
-    if (align_banded(e, rd, rw, qv, c, external_qstart, external_qend, &a)
+    if (align_banded(e, rd, rw, qv, c, external_qstart, external_qend, &a,
+                     realign)
         && a.final_cigar_length == full_read_length) {
       *out = std::move(a);
       return true;
@@ -1667,7 +1686,10 @@ struct Proc {
     for (Peak& pk : peaks) {
       if (pk.has_probe) { wave.push_back(&pk.f); wave.push_back(&pk.r); }
     }
-    if (!wave.empty()) e.post_wait({}, wave);
+    if (!wave.empty()) {
+      e.count(Engine::SV_PROBES, (int64_t)wave.size());
+      e.post_wait({}, wave);
+    }
 
     int32_t best_result = SV_NONE;
     int64_t best_mid_ref = 0, best_mid_read = 0;
@@ -1744,6 +1766,7 @@ struct Proc {
   // realign (longread.py:555-669). Appends records on success.
   int32_t realign_sv(const Interval& left_of_inv, const Interval& right_of_inv,
                      std::vector<Record>& records, int32_t mq) {
+    e.count(Engine::SV_REALIGN_TRIES, 1);
     // left/right re-alignments run as one wave (corun), like the Python path
     AlignRes align_left, align_right;
     bool has_left = false, has_right = false;
@@ -2521,6 +2544,12 @@ void engine_finish_batch(void* h) {
 // CPU seconds the engine's worker threads have used so far
 double engine_cpu_seconds(void* h) {
   return ((Engine*)h)->workers_cpu_seconds();
+}
+
+// The split path's counters since the last call, into out[N_SPLIT], zeroed
+void engine_take_split_counts(void* h, int64_t* out) {
+  Engine* e = (Engine*)h;
+  for (int k = 0; k < Engine::N_SPLIT; ++k) out[k] = e->split[k].exchange(0);
 }
 
 void engine_destroy(void* h) {

@@ -374,6 +374,9 @@ STAT_KEYS = (
     "score_s", "score_waves", "score_problems", "score_launches",
     "align_s", "align_fetch_s", "align_waves", "align_problems",
     "align_launches", "lane_bound_retries", "upload_s",
+    # align rows DIRS_CAP refused (a solo launch's direction planes past the
+    # cap): no result, as the reference's maxMatrixSizeMB refusal
+    "align_rows_refused",
     # DP cells, padded (what the kernels compute, bucket slack included)
     # and useful (the problems' own corridor areas)
     "cells_score", "cells_score_useful", "cells_align", "cells_align_useful",
@@ -397,6 +400,12 @@ STAT_KEYS = (
     # reads handed back to the Python path
     "engine_waves", "native_waves", "engine_wait_s", "engine_cpu_s",
     "native_failed",
+    # the split path (native/engine.cpp, pipeline/longread.py): checkForSV's
+    # score rows, realign tries, the align rows those tries post and their
+    # useful fill cells (a subset of cells_align_useful); the SAM writer's
+    # supplementary records
+    "sv_probes", "sv_realign_tries", "sv_align_rows", "cells_sv_useful",
+    "records_supplementary",
     # the Python path's wave batcher (pipeline/batcher.py)
     "fire_rounds",
 )
@@ -793,9 +802,9 @@ class DeviceContext:
                 sub = idxs[rows]
                 blocks.append((self.devices[s], align_block(pk_all, sub, B)))
                 metas.append((L, sub, Wp, Hp))
-        self.add("align_waves", len(chunks))
-        self.add("cells_align", cells)
-        self.add("cells_align_useful", useful)
+        self.add_all([("align_waves", len(chunks)), ("cells_align", cells),
+                      ("cells_align_useful", useful),
+                      ("align_rows_refused", len(failed))])
         blks = self._upload_shards(blocks)
         pending = []
         for (d, _), blk, (L, idxs, Wp, Hp) in zip(blocks, blks, metas):

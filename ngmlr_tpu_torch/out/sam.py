@@ -32,6 +32,7 @@ class SamWriter:
         self.cfg = cfg
         self.out = stream
         self.lines = 0   # alignment lines written (NGM.GetWrittenReadCount)
+        self.supplementary = 0   # of them, records flagged 0x800
 
     # ------------------------------------------------------------------
 
@@ -88,6 +89,7 @@ class SamWriter:
         flags = 0
         if not a.primary:
             flags |= 0x800
+            self.supplementary += 1
         readseq = read.seq
         qual: Optional[bytes] = read.qual
         if rec.reverse:

@@ -22,6 +22,7 @@ import sys
 import threading
 from typing import Callable, List, Optional, Sequence
 
+from ..ops import device_engine
 from ..ops.device_engine import AlignProblem, ScoreProblem, DeviceContext
 
 JOB_THREAD = "ngmlr-job"   # every thread a WaveBatcher starts
@@ -313,3 +314,12 @@ def set_thread_batcher(b: Optional[WaveBatcher]):
 def current() -> Optional[WaveBatcher]:
     b = getattr(_tls, "batcher", None)
     return b if b is not None else _current
+
+
+def add_stats(pairs) -> None:
+    """ctx.add_all(pairs) on the context the calling thread's device
+    requests go to: its batcher's, else the current one."""
+    b = current()
+    ctx = b.ctx if b is not None else device_engine.current()
+    if ctx is not None:
+        ctx.add_all(pairs)

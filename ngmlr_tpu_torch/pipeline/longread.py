@@ -507,6 +507,8 @@ class LongReadProcessor:
             if pr is not None:
                 probes.extend(pr)
         if probes:
+            from . import batcher as _batcher
+            _batcher.add_stats([("sv_probes", len(probes))])
             self._score_wave(probes)
 
         best_result = SV_NONE
@@ -556,6 +558,8 @@ class LongReadProcessor:
                    right_of_inv: Interval, read: Read, records: List[AlignmentRecord],
                    mq: int) -> int:
         """realign (AlignmentBuffer.cpp:1551-1776). Appends records on success."""
+        from . import batcher as _batcher
+        _batcher.add_stats([("sv_realign_tries", 1)])
         # the left/right re-alignments are independent — run them as one
         # wave instead of two sequential ones (reference computes them
         # back-to-back, AlignmentBuffer.cpp:1575-1650; results identical)
@@ -567,7 +571,6 @@ class LongReadProcessor:
                                       iv_part.is_reverse),
                 realign=True, full_alignment=False)
 
-        from . import batcher as _batcher
         wb = _batcher.current()
         if wb is not None and not getattr(wb, "serial", False):
             (align_left, err_l), (align_right, err_r) = wb.corun(

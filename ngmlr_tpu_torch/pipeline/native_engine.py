@@ -50,10 +50,15 @@ COUNT_KEYS = ("align_waves", "align_launches", "align_problems",
               "cells_align", "cells_align_useful", "alignment_ok",
               "alignment_all", "corridor_sum", "lane_bound_retries",
               "score_waves", "score_launches", "score_problems",
-              "cells_score", "cells_score_useful", "native_waves")
+              "cells_score", "cells_score_useful", "align_rows_refused",
+              "native_waves")
 LAUNCH_KEYS = ("corridor_windows", "convex_fill", "convex_backtrack",
                "score_fill")
 SEC_KEYS = ("align_s", "align_fetch_s", "score_s")
+# the split path's counters the engine's workers add up (native/engine.cpp:
+# Engine::split, same order), taken once a batch
+SPLIT_KEYS = ("sv_probes", "sv_realign_tries", "sv_align_rows",
+              "cells_sv_useful")
 WAVE_NEED, WAVE_BAD_UNIT = 1, 2   # ngt_wave_launch/fetch returns (0: done)
 # a device arena above this is handed back to torch's allocator at the end
 # of its batch (ultra-long reads' direction planes: up to the 4 GiB cap)
@@ -198,14 +203,14 @@ class NativeWave:
         self._check(rc, "fetch")
         return self.out
 
-    def flush(self, engine_waves: int):
-        """A batch's counters, its engine_waves among them, into ctx.stats
-        in one update, and the kernels' launches (counted where they
-        launched, those of a wave that failed midway too) into
-        kernels.launches; an arena past ARENA_KEEP goes back to torch's
-        allocator."""
+    def flush(self, batch_counts):
+        """A batch's counters, with the engine's own (batch_counts: its
+        engine_waves and split-path pairs), into ctx.stats in one update,
+        and the kernels' launches (counted where they launched, those of a
+        wave that failed midway too) into kernels.launches; an arena past
+        ARENA_KEEP goes back to torch's allocator."""
         counts = self.counts.tolist()
-        self.ctx.add_all([("engine_waves", engine_waves)]
+        self.ctx.add_all(list(batch_counts)
                          + list(zip(COUNT_KEYS, counts))
                          + list(zip(SEC_KEYS, self.secs.tolist())))
         with kernels._launches_lock:
@@ -374,11 +379,15 @@ class NativeEngine:
             lib.engine_finish_batch(self.h)
             raise
         finally:
-            # the batch's counters, once a batch
+            # the batch's counters, once a batch, in one update
+            split = np.zeros(len(SPLIT_KEYS), np.int64)
+            lib.engine_take_split_counts(self.h, split.ctypes.data)
+            batch_counts = [("engine_waves", waves)] + list(
+                zip(SPLIT_KEYS, split.tolist()))
             if wave is None:
-                ctx.add("engine_waves", waves)
+                ctx.add_all(batch_counts)
             else:
-                wave.flush(waves)
+                wave.flush(batch_counts)
         lib.engine_finish_batch(self.h)
         ctx.add("engine_cpu_s", lib.engine_cpu_seconds(self.h) - cpu0)
         with ctx.span("waves.records", batch=batch):

@@ -449,9 +449,11 @@ class Pipeline:
               writer: SamWriter, clk: BatchClock):
         """Emit in reference order (shorts first per intake group of 10,
         then longs; NGM.cpp:190-246 + CS.cpp:276-318)."""
+        n0 = writer.supplementary
         with self.ctx.span("emit", "emit_s", clk.id) as sp:
             self._write(batch, prep, outcomes, job_key, writer)
         clk.emit_start, clk.emit_end = sp.t0, sp.t1
+        self.ctx.add("records_supplementary", writer.supplementary - n0)
 
     def _account(self, clk: BatchClock):
         """An emitted batch's two waits: prepared, for a wave slot; its

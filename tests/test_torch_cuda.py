@@ -448,7 +448,7 @@ def test_native_wave_posts_the_python_waves_arrays(dev, case, monkeypatch):
                   [ctypes.string_at(table[i], int(lens[i])) if table[i]
                    else None for i in range(na)],
                   arr(6, ctypes.c_float, ns), na, ns)
-    wave.flush(1)
+    wave.flush([("engine_waves", 1)])
     torch.cuda.synchronize()
     assert got == want
     assert {k: ctx.stats[k] - st1[k] for k in keys} == want_n
@@ -478,6 +478,7 @@ def test_native_wave_posts_the_python_waves_arrays(dev, case, monkeypatch):
         assert torch.equal(got_s, scalars)
     assert len(arena) == (0 if case == "lane_retry" else len(chunks))
     assert (want_n["lane_bound_retries"] > 0) == (case == "lane_retry")
+    assert want_n["align_rows_refused"] == len(apend[4])
     if case == "cap_refusal":
         assert apend[4]
     elif case != "cap_split":

@@ -121,6 +121,25 @@ def test_native_align_plan_matches_python(case):
         assert failed and chunks
 
 
+def test_a_row_past_the_cap_is_counted_refused(monkeypatch):
+    """A wave of one row whose solo launch passes a small DIRS_CAP: the
+    C++ planner refuses it (csrc/wave.cu counts its planner's refusals in
+    align_rows_refused; the card test holds that count against the Python
+    wave's), and the Python wave counts it there."""
+    pk = _align_rows(9, 1, W=(3000, 3001), H=(3000, 3001))
+    cap = 1 << 20
+    chunks, failed, cells, useful = _native_align(pk, cap=cap)
+    assert (chunks, failed, cells, useful) == ([], [0], 0, 0)
+    monkeypatch.setattr(tde, "dirs_cap", lambda: cap)
+    ctx = tde.DeviceContext(np.zeros(1 << 16, np.uint8), device="cpu")
+    rb = ctx.upload_reads(np.zeros(1 << 16, np.uint8))
+    pend = ctx.align_dispatch_pk(pk, (2.0, -5.0, -5.0, -5.0, -1.0, 0.15),
+                                 readbuf=rb)
+    assert pend[4] == [0]
+    assert ctx.stats["align_rows_refused"] == 1
+    assert ctx.stats["align_launches"] == ctx.stats["cells_align"] == 0
+
+
 def test_native_align_plan_forced_lanes(monkeypatch):
     """The lanes every row of a first pass takes when forced (the card
     tests force the lane-bound retry with it) against the Python plan with
