@@ -208,7 +208,8 @@ def align_banded(ref_win: RefWin, qry_view: SeqView, corridor: Corridor,
                            corridor.cf, corridor.ci, corridor.width)
     from ..pipeline import batcher as _batcher
     if sv:
-        # the row's useful fill cells, as the wave planner counts them
+        # the useful fill cells the row asks for, reckoned as the wave
+        # planner reckons them; a row DIRS_CAP refuses counts here alone
         _batcher.add_stats([("sv_align_rows", 1), (
             "cells_sv_useful",
             qry_view.length * min(corridor.width, problem.ref.W))])

@@ -1145,7 +1145,9 @@ static bool align_banded(Engine& e, const ReadCtx& rd, const RefWin& rw,
     return false;
   if (sv) {
     e.count(Engine::SV_ALIGN_ROWS, 1);
-    // the row's useful fill cells, as the wave planner counts them
+    // the useful fill cells the row asks for, reckoned as the wave planner
+    // reckons them; counted before the planner sees the row, so a row that
+    // DIRS_CAP refuses counts here and not in cells_align_useful
     const int64_t W = rw.desc.W & ngt_plan::W_MASK;
     e.count(Engine::CELLS_SV_USEFUL, qv.length * std::min<int64_t>(c.width, W));
   }

@@ -401,8 +401,10 @@ STAT_KEYS = (
     "engine_waves", "native_waves", "engine_wait_s", "engine_cpu_s",
     "native_failed",
     # the split path (native/engine.cpp, pipeline/longread.py): checkForSV's
-    # score rows, realign tries, the align rows those tries post and their
-    # useful fill cells (a subset of cells_align_useful); the SAM writer's
+    # score rows, realign tries, the align rows those tries post and the
+    # useful fill cells they ask for, counted as they are posted (a row
+    # DIRS_CAP refuses counts here but not in cells_align_useful, which
+    # counts a lane-bound retry's rows twice); the SAM writer's
     # supplementary records
     "sv_probes", "sv_realign_tries", "sv_align_rows", "cells_sv_useful",
     "records_supplementary",

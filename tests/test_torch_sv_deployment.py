@@ -2,8 +2,8 @@
 (benchmark/traffic/survivor.json, SURVIVOR's default SV mix over
 length-biased PBSIM CLR reads) gives the strata it states, and a dozen of
 its reads map through Pipeline alike on the native engine and on the Python
-assembly path: the same SAM bytes, records the benchmark's plain reference
-passes, and the same split-path counters."""
+assembly path: the JAX package's SAM bytes, records the benchmark's plain
+reference passes, and the same split-path counters."""
 
 import io
 import json
@@ -38,6 +38,24 @@ def _load(*parts):
         return json.load(f)
 
 
+def _strip_pg(sam: bytes) -> bytes:
+    return b"".join(l for l in sam.splitlines(keepends=True)
+                    if not l.startswith(b"@PG"))
+
+
+def _jax_sam(fasta, query, argv):
+    """ngmlr_tpu's Pipeline in process on the same reads, @PG stripped."""
+    from ngmlr_tpu.cli import build_parser as jax_parser
+    from ngmlr_tpu.cli import config_from_args as jax_config
+    from ngmlr_tpu.pipeline.runner import Pipeline as JaxPipeline
+    argv = ["-r", fasta, "-q", query] + argv + ["--skip-write"]
+    p = JaxPipeline(jax_config(jax_parser().parse_args(argv), argv), fasta,
+                    use_cache=False)
+    buf = io.BytesIO()
+    p.run(query, buf)
+    return _strip_pg(buf.getvalue())
+
+
 def test_survivor_mix_holds_its_strata():
     mix = _load("traffic", "survivor.json")
     block = gen.design(mix)
@@ -52,7 +70,8 @@ def test_survivor_mix_holds_its_strata():
 @pytest.fixture(scope="module")
 def mapped(tmp_path_factory):
     """The reads mapped with NGMLR_TPU_NATIVE=1 and =0: {path: (SAM bytes,
-    stats)}, the reads, the genome and the mix."""
+    stats)}, and by the JAX package ("jax": its SAM bytes, @PG stripped);
+    the reads, the genome and the mix."""
     d = tmp_path_factory.mktemp("sv_deployment")
     genome = generators.make_genome(np.random.default_rng(11), GENOME_LEN)
     fasta = str(d / "ref.fa")
@@ -82,12 +101,18 @@ def mapped(tmp_path_factory):
             out[native] = (buf.getvalue(), dict(p.ctx.stats))
     finally:
         mp.undo()
+    out["jax"] = _jax_sam(fasta, query, _load("configs", "chr1_pacbio_sv.json")
+                          ["argv"])
     return out, reads, genome, mix
 
 
 def test_both_paths_write_the_same_sam(mapped):
+    """The native engine's SAM, the Python assembly path's and the JAX
+    package's are the same bytes, split records and SA tags among them."""
     out, reads, _, _ = mapped
     assert out["1"][0] == out["0"][0]
+    assert _strip_pg(out["1"][0]) == out["jax"]
+    assert b"SA:Z:" in out["jax"]
     assert out["1"][1]["native_failed"] == 0
     assert {r.kind for r in reads.values()} == {"inv", "dup", "join", "del",
                                                "ins"}

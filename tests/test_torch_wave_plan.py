@@ -140,6 +140,31 @@ def test_a_row_past_the_cap_is_counted_refused(monkeypatch):
     assert ctx.stats["align_launches"] == ctx.stats["cells_align"] == 0
 
 
+def test_a_refused_realign_row_counts_as_asked(monkeypatch):
+    """cells_sv_useful counts the cells a realign row asks for as it is
+    posted (native/engine.cpp's align_banded alike): a realign row past a
+    small DIRS_CAP counts there, in sv_align_rows and in
+    align_rows_refused, and not in cells_align_useful."""
+    from ngmlr_tpu_torch.align.aligner import (RefWin, align_banded,
+                                               corridor_endpoints)
+    from ngmlr_tpu_torch.io.reads import Read, SeqView
+    monkeypatch.setattr(tde, "dirs_cap", lambda: 1 << 20)
+    n = 3000
+    ctx = tde.DeviceContext(np.zeros(1 << 16, np.uint8), device="cpu")
+    ctx.upload_reads(np.zeros(n, np.uint8))
+    monkeypatch.setattr(tde, "_current", ctx)
+    read = Read(0, b"r", b"A" * n, None)
+    read.buf_offset = 0
+    ref_win = RefWin(tde.RefDesc(0, 0, n, n), b"A" * n)
+    c = corridor_endpoints(n, ref_win.W, n, True)
+    assert align_banded(ref_win, SeqView(read, 0, n, False), c, 0, 0,
+                        sv=True) is None
+    st = ctx.stats
+    assert (st["sv_align_rows"], st["cells_sv_useful"]) == (1, n * n)
+    assert st["align_rows_refused"] == 1
+    assert st["cells_align_useful"] == st["align_launches"] == 0
+
+
 def test_native_align_plan_forced_lanes(monkeypatch):
     """The lanes every row of a first pass takes when forced (the card
     tests force the lane-bound retry with it) against the Python plan with
